@@ -529,6 +529,21 @@ class Evaluation:
         if self.model.name == 'NODDI' and self.get_config('doSaveModulatedMaps'):
             out['MAPs_mod'] = _pl.scatter(
                 np.asarray(results['estimates_mod'], np.float32), mask, dim)
+        if self.model.name == 'Free-Water' and self.get_config('doSaveCorrectedDWI'):
+            mean_b0_masked = (self.mean_b0s[mask == 1]
+                              if self.mean_b0s is not None else None)
+            # under doMergeB0 the fitted signal has its one merged b0 at
+            # column 0, not at the scheme's b0 columns
+            b0_cols = (np.array([0]) if self.get_config('doMergeB0')
+                       else self.scheme.b0_idx)
+            has_b0 = self.scheme.b0_count > 0
+            yc = _pl.reinstate_corrected_dwi(
+                results['y_corrected'], self.y, mean_b0_masked, b0_cols,
+                bool(self.get_config('doNormalizeSignal')) and has_b0,
+                bool(self.get_config('doKeepb0Intact')) and has_b0)
+            out['DWI_corrected'] = _pl.scatter(
+                yc.astype(np.float32), mask,
+                self.niiDWI.shape[:3] + (yc.shape[1],))
         return out
 
     # --------------------------------------------------------- save_results
@@ -565,8 +580,12 @@ class Evaluation:
         if self.get_config('doComputeNRMSE'):
             emit(self.RESULTS['NRMSE'], 'fit_NRMSE.nii.gz', cal=(0, 1))
         if self.get_config('doSaveCorrectedDWI'):
-            WARNING(f'"doSaveCorrectedDWI" is only meaningful for the '
-                    f'Free-Water model, not "{self.model.name}"')
+            if self.model.name == 'Free-Water':
+                emit(self.RESULTS['DWI_corrected'], 'DWI_corrected.nii.gz',
+                     cal=(0, 1))
+            else:
+                WARNING(f'"doSaveCorrectedDWI" is only meaningful for the '
+                        f'Free-Water model, not "{self.model.name}"')
         for i, name in enumerate(self.model.maps_name):
             emit(self.RESULTS['MAPs'][:, :, :, i], f'fit_{name}.nii.gz',
                  descrip=self.model.maps_descr[i] + tag)

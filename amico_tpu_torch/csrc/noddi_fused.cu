@@ -12,7 +12,9 @@
 // Each stage runs Lawson-Hanson rounds (masked CG, ratio-test step back,
 // prune below tol*max|b_eff|, top-k adds), then a CG polish at the stage's
 // largest budget.  The schedule arrives as kernel arguments, so one build
-// serves any schedule of that form.
+// serves any schedule of that form.  The per-voxel solver pieces (masked
+// CG, step back and prune, adds, one round) are csrc/qp_warp.cuh, shared
+// with the tile QP kernel csrc/nneg_qp.cu.
 //
 // Layout.  One block per tile; the tile's two Grams live in dynamic shared
 // memory for the whole solve, G1 and G2 at a row stride of LD = 160 floats
@@ -31,11 +33,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qp_warp.cuh"
+
 #define KMAX 5                 // coefficients per lane: n <= 160
 #define LD (32 * KMAX)         // row stride of a Gram in shared memory
 #define MAXR 32                // rounds per stage
 #define NWARPS 16              // warps per block (voxels in flight per tile)
-#define FULL 0xffffffffu
 
 struct StageSched {
   int rounds, add_k, polish;
@@ -61,184 +64,13 @@ struct Params {
 
 typedef float Vec[KMAX];
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// warp argmax; among equal maxima the lowest row index wins (jnp.argmax and
-// torch.argmax break ties the same way)
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float ov = __shfl_xor_sync(FULL, v, o);
-    int oi = __shfl_xor_sync(FULL, i, o);
-    if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
-}
-
-__device__ __forceinline__ float vdot(const Vec a, const Vec b) {
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < KMAX; k++) s += a[k] * b[k];
-  return warp_sum(s);
-}
-
-// value of row idx of a warp-distributed vector, on every lane
-__device__ __forceinline__ float get_row(const Vec a, int idx) {
-  float v = 0.f;
-#pragma unroll
-  for (int k = 0; k < KMAX; k++)
-    if (k == (idx >> 5)) v = a[k];
-  return __shfl_sync(FULL, v, idx & 31);
-}
-
-__device__ __forceinline__ bool bit(unsigned m, int k) { return (m >> k) & 1u; }
-
-// Every helper below is force-inlined: the Vec arrays then stay in
-// registers (a call would pass them through local memory).
-
-// out = G v, walking only the nonzero entries of v.  Gs holds G transposed
-// (row j of Gs is column j of G), so lane l reads Gs[j*LD + l + 32k]:
-// consecutive lanes, consecutive words, no bank conflicts.
-__device__ __forceinline__ void gmv(const float* __restrict__ Gs, const Vec v,
-                                    Vec out, int lane) {
-#pragma unroll
-  for (int k = 0; k < KMAX; k++) out[k] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KMAX; kk++) {
-    unsigned nz = __ballot_sync(FULL, v[kk] != 0.f);
-    while (nz) {
-      int src = __ffs(nz) - 1;
-      nz &= nz - 1;
-      float vj = __shfl_sync(FULL, v[kk], src);
-      const float* g = Gs + (src + 32 * kk) * LD + lane;
-#pragma unroll
-      for (int k = 0; k < KMAX; k++) out[k] = fmaf(g[32 * k], vj, out[k]);
-    }
-  }
-}
-
-struct Stage {
-  const float* Gs;
-  float l2;
-  Vec beff;        // (b*cmask - l1)*cmask
-  unsigned cmask;  // bit k: row lane+32k may enter the working set
-  float gate;      // tol * (max|b_eff| + 1e-30)
-};
-
-// masked CG from z0 on the working set m
-__device__ __forceinline__ void cg(const Stage& S, unsigned m, const Vec z0, int iters,
-                   Vec z, int lane) {
-  Vec r, p, Ap;
-#pragma unroll
-  for (int k = 0; k < KMAX; k++) z[k] = bit(m, k) ? z0[k] : 0.f;
-  gmv(S.Gs, z, Ap, lane);
-#pragma unroll
-  for (int k = 0; k < KMAX; k++) {
-    r[k] = bit(m, k) ? S.beff[k] - (Ap[k] + S.l2 * z[k]) : 0.f;
-    p[k] = r[k];
-  }
-  float rs = vdot(r, r);
-  for (int it = 0; it < iters; it++) {
-    gmv(S.Gs, p, Ap, lane);
-#pragma unroll
-    for (int k = 0; k < KMAX; k++)
-      Ap[k] = bit(m, k) ? Ap[k] + S.l2 * p[k] : 0.f;
-    float denom = vdot(p, Ap);
-    // f32 Grams can carry tiny negative eigenvalues
-    bool safe = denom > 1e-30f;
-    float alpha = safe ? rs / denom : 0.f;
-#pragma unroll
-    for (int k = 0; k < KMAX; k++) {
-      z[k] += alpha * p[k];
-      r[k] -= alpha * Ap[k];
-    }
-    float rs_new = vdot(r, r);
-    float beta = safe ? rs_new / (rs + 1e-30f) : 0.f;
-#pragma unroll
-    for (int k = 0; k < KMAX; k++) p[k] = r[k] + beta * p[k];
-    rs = rs_new;
-  }
-#pragma unroll
-  for (int k = 0; k < KMAX; k++)
-    if (!isfinite(z[k])) z[k] = 0.f;
-}
-
-// CG on the working set, ratio-test step back, prune
-__device__ __forceinline__ void inner_solve(const Stage& S, Vec x, unsigned& m, int iters,
-                            int lane) {
-  Vec z;
-  cg(S, m, x, iters, z, lane);
-  // only coordinates with x > 0 bound the step back
-  float rmin = 3.0e38f;
-#pragma unroll
-  for (int k = 0; k < KMAX; k++)
-    if (z[k] <= 0.f && bit(m, k) && x[k] > 0.f)
-      rmin = fminf(rmin, x[k] / (x[k] - z[k] + 1e-30f));
-  float alpha = fminf(fmaxf(warp_min(rmin), 0.f), 1.f);
-#pragma unroll
-  for (int k = 0; k < KMAX; k++) {
-    float xk = bit(m, k) ? x[k] + alpha * (z[k] - x[k]) : 0.f;
-    if (!(xk > S.gate)) m &= ~(1u << k);
-    x[k] = bit(m, k) ? xk : 0.f;
-  }
-}
-
-// add the most violated atom outside the working set, then up to add_k-1
-// more, each under the same gate
-__device__ __forceinline__ void add_atoms(const Stage& S, const Vec x, unsigned& m, int add_k,
-                          int lane) {
-  Vec w;
-  gmv(S.Gs, x, w, lane);
-  const unsigned allowed = S.cmask & ~m;
-#pragma unroll
-  for (int k = 0; k < KMAX; k++)
-    w[k] = bit(allowed, k) ? S.beff[k] - w[k] - S.l2 * x[k] : -3.0e38f;
-  for (int a = 0; a < add_k; a++) {
-    float best = -3.0e38f;
-    int bi = lane;
-    bool first = true;
-#pragma unroll
-    for (int k = 0; k < KMAX; k++)
-      if (first || w[k] > best) { best = w[k]; bi = lane + 32 * k; first = false; }
-    warp_argmax(best, bi);
-    if (best > S.gate && (bi & 31) == lane) m |= 1u << (bi >> 5);
-#pragma unroll
-    for (int k = 0; k < KMAX; k++)
-      if (bi == lane + 32 * k) w[k] = -3.0e38f;
-  }
-}
-
 // one stage for one voxel: x holds the warm start on entry (zero for a cold
 // start) and the solution on exit
 __device__ __forceinline__ void as_solve(const float* Gs, const StageSched& sc, float l1,
-                         float l2, const Vec b, unsigned cmask, bool seed_m0,
-                         Vec x, int lane) {
-  Stage S;
-  S.Gs = Gs;
-  S.l2 = l2;
-  S.cmask = cmask;
-  float amax = 0.f;
-#pragma unroll
-  for (int k = 0; k < KMAX; k++) {
-    S.beff[k] = bit(cmask, k) ? b[k] - l1 : 0.f;
-    amax = fmaxf(amax, fabsf(S.beff[k]));
-  }
-  S.gate = 3e-6f * (warp_max(amax) + 1e-30f);
+                         float l2, const Vec& b, unsigned cmask, bool seed_m0,
+                         Vec& x, int lane) {
+  Stage<KMAX> S;
+  stage_init<KMAX>(S, Gs, l1, l2, b, cmask);
   unsigned m = 0;
   if (seed_m0) {
     m = cmask;
@@ -247,11 +79,9 @@ __device__ __forceinline__ void as_solve(const float* Gs, const StageSched& sc, 
     for (int k = 0; k < KMAX; k++)
       if (x[k] > 0.f && bit(cmask, k)) m |= 1u << k;
   }
-  for (int r = 0; r < sc.rounds; r++) {
-    for (int i = 0; i < sc.inner[r]; i++) inner_solve(S, x, m, sc.cg[r], lane);
-    add_atoms(S, x, m, sc.add_k, lane);
-  }
-  inner_solve(S, x, m, sc.polish, lane);
+  for (int r = 0; r < sc.rounds; r++)
+    as_round<KMAX>(S, x, m, sc.cg[r], sc.inner[r], sc.add_k, lane);
+  inner_solve<KMAX>(S, x, m, sc.polish, lane);
 #pragma unroll
   for (int k = 0; k < KMAX; k++) x[k] = fmaxf(x[k], 0.f);
 }
@@ -275,8 +105,8 @@ __device__ __forceinline__ void solve_voxel(const Params& P, const float* G1s, c
   as_solve(G1s, P.s[0], 0.f, 0.f, b, pad1, false, x1, lane);
 
   // stage 2 right-hand side
-  const float x_iso = get_row(x1, na - 1);
-  const float x_dot = P.exvivo ? get_row(x1, na - 2) : 0.f;
+  const float x_iso = get_row<KMAX>(x1, na - 1);
+  const float x_dot = P.exvivo ? get_row<KMAX>(x1, na - 2) : 0.f;
   Vec b2;
 #pragma unroll
   for (int k = 0; k < KMAX; k++) b2[k] = 0.f;
@@ -326,8 +156,8 @@ __device__ __forceinline__ void solve_voxel(const Params& P, const float* G1s, c
   const float f1 = warp_sum(s_f1) / sum_wm;
   const float f2 = warp_sum(s_f2) / sum_wm;
   const float k1 = warp_sum(s_k1) / sum_wm;
-  const float fwf = get_row(x, na - 1) / sum_atoms;
-  const float dot = P.exvivo ? get_row(x, na - 2) / sum_atoms : 0.f;
+  const float fwf = get_row<KMAX>(x, na - 1) / sum_atoms;
+  const float dot = P.exvivo ? get_row<KMAX>(x, na - 2) / sum_atoms : 0.f;
   if (lane == 0) {
     float* e = P.est + vox * 4;
     e[0] = f1 / (f1 + f2 + 1e-16f);
@@ -368,19 +198,6 @@ noddi_fused_kernel(const Params P) {
 }
 
 extern "C" {
-
-// largest dynamic shared memory a block may opt into on `device`
-int noddi_fused_max_smem(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return 0;
-  return v;
-}
-
-const char* noddi_fused_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
 
 // sched: 3 stages x [rounds, add_k, polish, cg[MAXR], inner[MAXR]] (host)
 int noddi_fused_launch(const void* G1, const void* G2, const void* b1,

@@ -1,12 +1,12 @@
-"""Model zoo of the port.  NODDI is ported; the other five models of the
-JAX package are ROADMAP queue 1 and raise when asked for."""
+"""Model zoo of the port.  NODDI and FreeWater are ported; the other four
+models of the JAX package are ROADMAP queue 1 and raise when asked for."""
 from .base import BaseModel
+from .free_water import FreeWater
 from .noddi import NODDI
 
-__all__ = ['BaseModel', 'NODDI']
+__all__ = ['BaseModel', 'FreeWater', 'NODDI']
 
 _NOT_PORTED = {
-    'FreeWater': 'FreeWater with K2',
     'CylinderZeppelinBall': 'CylinderZeppelinBall',
     'SANDI': 'SANDI',
     'StickZeppelinBall': 'StickZeppelinBall and VolumeFractions',

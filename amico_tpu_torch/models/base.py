@@ -33,6 +33,26 @@ DEFAULT_NODDI_STAGE_ITERS = ((0, 4, (4, 6, 8, 10), 1, False, 2),
                              (0, 6, (3, 5, 8, 10, 12, 14),
                               (1, 1, 2, 2, 2, 2), False, 2),
                              (6, (16, 10, 8, 8, 8, 8), 2))
+# single-solve models (FreeWater; CylinderZeppelinBall and SANDI once
+# ported), as in the JAX package: Lawson-Hanson from the empty working set
+# with per-round CG budgets, and `converge` rounds past the schedule until
+# the tile's working sets are stable, so no support is cut at the round count
+DEFAULT_AS_SOLVER_KW = {
+    'fista_iters': 0,
+    'cd_sweeps': 0,
+    'refine_rounds': 12,
+    'cg_iters': (6, 6, 6, 10, 10, 10, 12, 12, 12, 12, 12, 12),
+    'converge': True,
+}
+# dense-support default (CylinderZeppelinBall's lambda2=4 ridge spreads the
+# support over all its correlated atoms): FISTA first, a few rounds after
+DENSE_AS_SOLVER_KW = {
+    'fista_iters': 80,
+    'cd_sweeps': 8,
+    'refine_rounds': 6,
+    'cg_iters': 16,
+    'converge': True,
+}
 # tile width: the width the JAX package uses off the TPU.  Its TPU
 # lane-width cost model is not carried over (ROADMAP: tile width on the H100)
 DEFAULT_TILE_SIZE = 128
@@ -134,6 +154,19 @@ class BaseModel(ABC):
         self.solver_params['custom_iters'] = custom
         if backend is not None:
             self.solver_params['backend'] = str(backend)
+
+    def _solver_kwargs(self) -> dict:
+        sp = getattr(self, 'solver_params', {})
+        if not sp.get('custom_iters'):
+            # the validated active-set default; users who set any iteration
+            # knob get the uniform behaviour
+            return dict(DEFAULT_AS_SOLVER_KW)
+        return {
+            'fista_iters': int(sp.get('fista_iters', DEFAULT_FISTA_ITERS)),
+            'cd_sweeps': int(sp.get('cd_sweeps', DEFAULT_CD_SWEEPS)),
+            'refine_rounds': int(sp.get('refine_rounds', DEFAULT_REFINE_ROUNDS)),
+            'cg_iters': sp.get('cg_iters', DEFAULT_CG_ITERS),
+        }
 
     # ------------------------------------------------- tiled fit driver
     def _run_tiled_fit(self, evaluation, fit_chunk_fn, n_outputs_like: dict,

@@ -1,12 +1,13 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles ``amico_tpu_torch/csrc/*.cu`` (plain C entry
-points, no PyTorch headers: a build takes seconds) into
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c`` compiles each ``amico_tpu_torch/csrc/*.cu`` (plain C entry
+points, no PyTorch headers: seconds each), one nvcc per source, all
+started together; ``nvcc -shared`` then links them into
 ``build/amico_tpu_torch/<hash>/libamico_tpu_torch.so`` beside the package.
-The hash covers the sources' bytes and the flags, so an unchanged checkout
-reuses its build and any edit builds anew.  The build runs at first use;
-the library is loaded with ctypes, once per process.
+The hash covers the sources' and headers' bytes and the flags, so an
+unchanged checkout reuses its build and any edit builds anew.  The build
+runs at first use; the library is loaded with ctypes, once per process.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ CSRC = os.path.join(_PKG_DIR, 'csrc')
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), 'build',
                           'amico_tpu_torch')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC']
+              '-O3', '-Xcompiler', '-fPIC']
 LIB_NAME = 'libamico_tpu_torch.so'
 
 _lock = threading.Lock()
@@ -62,23 +63,40 @@ def library_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the sources unless this hash is already built; return the
-    library's path.  Raises with nvcc's output when the build fails."""
+    library's path.  Raises with nvcc's output when a step fails."""
     global last_build_seconds
     out = library_path()
     if os.path.isfile(out):
         return out
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [_nvcc()] + NVCC_FLAGS + (['-Xptxas', '-v'] if verbose else []) \
-        + ['-o', tmp] + _sources()
+    work = f'{out}.{os.getpid()}.d'
+    os.makedirs(work, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.time()
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(work, os.path.basename(src) + '.o')
+        cmd = [nvcc] + NVCC_FLAGS + (['-Xptxas', '-v'] if verbose else []) \
+            + ['-c', src, '-o', obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}): '
+                               f'{" ".join(cmd)}\n{text}')
+        logs.append(text)
+    tmp = os.path.join(work, LIB_NAME)
+    cmd = [nvcc, '-shared', '-o', tmp] + [obj for _, obj, _ in jobs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed ({proc.returncode}): '
                            f'{" ".join(cmd)}\n{proc.stderr}{proc.stdout}')
     if verbose:
-        print(proc.stderr + proc.stdout, flush=True)
+        print(''.join(logs), flush=True)
     os.replace(tmp, out)        # atomic: a concurrent loader never sees half
+    shutil.rmtree(work, ignore_errors=True)
     last_build_seconds = time.time() - t0
     return out
 

@@ -35,14 +35,27 @@ def demo_noddi(scheme: Scheme | None = None, small: bool = True,
     generated into ``kernels_dir`` once per scheme and grid (a marker file
     keys them) and resampled on every call."""
     from .models import NODDI
-    scheme = scheme or demo_scheme()
     model = NODDI()
     if small:
         model.set(IC_VFs=np.linspace(0.3, 0.99, 4),
                   IC_ODs=np.array([0.06, 0.3, 0.8]))
+    return _demo_model(model, scheme or demo_scheme(), kernels_dir)
+
+
+def demo_freewater(scheme: Scheme | None = None, type: str = 'Human',
+                   kernels_dir: str | None = None):
+    """Build the port's FreeWater model (``type`` 'Human' or 'Mouse') +
+    resampled KERNELS + hash table, cached in ``kernels_dir`` as
+    :func:`demo_noddi` caches its atoms."""
+    from .models import FreeWater
+    model = FreeWater()
+    model.set(type=type)
+    return _demo_model(model, scheme or demo_scheme(), kernels_dir)
+
+
+def _demo_model(model, scheme: Scheme, kernels_dir: str | None):
     model.set_solver()
     model.scheme = scheme
-
     out = kernels_dir or tempfile.mkdtemp(prefix='amico_tpu_torch_demo_')
     os.makedirs(out, exist_ok=True)
     src = resolve_source(NDIRS)
@@ -152,6 +165,114 @@ def fused_agreement(args, kernel_out, twin_out) -> dict:
                                int(torch.count_nonzero(o_t > 0)))}
 
 
+def freewater_voxels(n: int, kernels: dict, htable: np.ndarray,
+                     seed: int = 0):
+    """Random FreeWater mixtures through the actual dictionary + noise:
+    ``tests/test_models.py::_rand_voxels``'s recipe (weights U(0,1) on ~30%
+    of the atoms, +0.5 on one atom, normalised; 0.002 Gaussian noise,
+    clipped at 0), drawn in bulk as :func:`demo_voxels` draws.  Returns
+    (y (n, nS), DIRs (n, 3), true LUT directions (n,), weights W (n,
+    n_atoms), zeppelins first)."""
+    rng = np.random.RandomState(seed)
+    n_perp = kernels['D'].shape[0]
+    na = n_perp + kernels['CSF'].shape[0]
+    DIRs = rng.randn(n, 3)
+    DIRs /= np.linalg.norm(DIRs, axis=1, keepdims=True)
+    lut_idx = _lut.dir_to_lut_idx(DIRs, htable)
+    W = rng.rand(n, na) * (rng.rand(n, na) < 0.3)
+    W[np.arange(n), rng.randint(na, size=n)] += 0.5
+    W /= np.maximum(W.sum(1, keepdims=True), 1e-9)
+    K = np.transpose(kernels['D'], (1, 2, 0))          # (ndirs, nS, n_perp)
+    y = W[:, n_perp:] @ kernels['CSF'].astype(np.float64)
+    step = 8192
+    for i in range(0, n, step):
+        sl = slice(i, min(i + step, n))
+        y[sl] += np.einsum('bsa,ba->bs', K[lut_idx[sl]], W[sl, :n_perp])
+    y = np.clip(y + 0.002 * rng.randn(*y.shape), 0, None)
+    return y, DIRs, lut_idx, W
+
+
+def freewater_tile_inputs(model, kernels, htable, device, n_tiles: int,
+                          seed: int = 0) -> list:
+    """The tile QP's inputs [G, b] for the first ``n_tiles`` 128-voxel
+    tiles of :func:`freewater_voxels`, built as ``FreeWater.fit`` builds
+    them."""
+    import torch
+    from .models._fitops import project
+    from .models.engine import build_tile_plan
+    y, _, lut_idx, _ = freewater_voxels(n_tiles * 160, kernels, htable,
+                                        seed=seed)
+    plan = build_tile_plan(lut_idx, 128)
+    c = model.prepare(kernels, device)
+    y_ext = torch.as_tensor(np.concatenate([y, np.zeros((1, y.shape[1]))]),
+                            dtype=torch.float32, device=device)
+    perm = torch.as_tensor(plan.perm[:n_tiles * 128].astype(np.int64),
+                           device=device)
+    Y = y_ext[perm].view(n_tiles, 128, -1)
+    dirs = torch.as_tensor(plan.tile_dirs[:n_tiles].astype(np.int64),
+                           device=device)
+    return [c['G_all'][dirs], project(c['A_all'][dirs], Y)]
+
+
+def random_qp_problems(C: int, n: int, M: int = 128, m: int = 60,
+                       seed: int = 0):
+    """tests/test_pallas_qp.py's random tile QPs: A ~ N(0, 1) (C, m, n),
+    Y ~ U(0, 1) (C, M, m); returns float32 NumPy G = A'A (C, n, n) and
+    b = A'y (C, M, n)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(C, m, n)
+    Y = np.abs(rng.rand(C, M, m))
+    G = np.einsum('cmi,cmj->cij', A, A)
+    b = np.einsum('cmi,cbm->cbi', A, Y)
+    return G.astype(np.float32), b.astype(np.float32)
+
+
+def freewater_maps(x, n_perp: int):
+    """FreeWater's maps from its coefficients x (..., n), zeppelins first:
+    FiberVolume, FW (and the iso fractions FW_blood, FW_csf for Mouse)."""
+    import torch
+    x_sum = x.sum(-1, keepdim=True) + 1e-16
+    v = x[..., :n_perp].sum(-1, keepdim=True) / x_sum
+    iso = x[..., n_perp:] / x_sum if x.shape[-1] - n_perp > 1 else v[..., :0]
+    return torch.cat([v, 1.0 - v, iso], -1)
+
+
+def qp_agreement(G, b, lam1, lam2, x_kernel, x_twin,
+                 n_perp: int | None = None) -> dict:
+    """How the tile QP's kernel agrees with its twin on the same inputs:
+    |x_k - x_t| by median, p95 and max; the objective 1/2 x'Gx - b'x +
+    lam1 sum(x) + lam2/2 |x|^2 in float64, as the 99th percentile and max
+    of the relative gap, and the shares of voxels whose kernel objective is
+    worse (and better) than the twin's by more than 1e-3 relative.  With
+    ``n_perp``, also FreeWater's maps (:func:`freewater_maps`) by median,
+    p95 and max: adjacent zeppelins are near-collinear, so x can move
+    between them at no cost in the objective, and the maps cannot."""
+    G, b = G.double(), b.double()
+
+    def obj(x):
+        x = x.double()
+        return 0.5 * (x * (x @ G.transpose(1, 2))).sum(-1) \
+            - (b * x).sum(-1) + lam1 * x.sum(-1) + 0.5 * lam2 * (x * x).sum(-1)
+
+    o_k, o_t = obj(x_kernel), obj(x_twin)
+    rel = ((o_k - o_t) / (o_t.abs() + 1e-6)).flatten().cpu().numpy()
+    err = (x_kernel - x_twin).abs().cpu().numpy()
+    out = {'x_median': float(np.median(err)),
+           'x_p95': float(np.percentile(err, 95)),
+           'x_max': float(err.max()),
+           'obj_gap_p99': float(np.percentile(np.abs(rel), 99)),
+           'obj_gap_max': float(np.abs(rel).max()),
+           'obj_share_worse': float(np.mean(rel > 1e-3)),
+           'obj_share_better': float(np.mean(rel < -1e-3))}
+    if n_perp is not None:
+        merr = (freewater_maps(x_kernel, n_perp)
+                - freewater_maps(x_twin, n_perp)).abs().cpu().numpy()
+        out.update(map_median=float(np.median(merr)),
+                   map_p95=float(np.percentile(merr, 95)),
+                   map_max=float(merr.max()))
+    return out
+
+
 def write_demo_subject(subject_dir: str, scheme: Scheme, y: np.ndarray,
                        dim: tuple, s0: float = 1000.0) -> None:
     """Write voxel signals ``y`` (prod(dim), nS), scaled by ``s0``, as
@@ -197,12 +318,47 @@ def noddi_oracle_voxel(kernels, dwi_idx, y_i, lut_i, lam1=0.5, lam2=1e-3):
                      2 / np.pi * np.arctan2(1.0, k1), x[-1] / sa])
 
 
-def direction_agreement(evaluation, lut_true: np.ndarray) -> float:
-    """Share of a fitted ``Evaluation``'s masked voxels whose principal
-    direction (``DIRs``) falls on the LUT direction ``lut_true``."""
+def direction_agreement(evaluation, lut_true: np.ndarray,
+                        voxels: np.ndarray | None = None) -> float:
+    """Share of a fitted ``Evaluation``'s masked voxels (those selected by
+    the boolean ``voxels``, if given) whose principal direction (``DIRs``)
+    falls on the LUT direction ``lut_true``."""
     lut_idx = _lut.dir_to_lut_idx(np.asarray(evaluation.DIRs, np.float64),
                                   evaluation.htable)
-    return float(np.mean(lut_idx == np.asarray(lut_true)))
+    agree = lut_idx == np.asarray(lut_true)
+    return float(np.mean(agree if voxels is None else agree[voxels]))
+
+
+def freewater_oracle_audit(evaluation, n: int = 1000,
+                           seed: int = 0) -> np.ndarray:
+    """|fitted maps - oracle maps| (n, n_maps) for ``n`` voxels of a fitted
+    FreeWater ``Evaluation``, sampled with ``seed``.  The oracle is the
+    exact non-negative elastic net ``amico_tpu.ops.native.lasso(A, y,
+    lambda1, lambda2)`` (LARS) on each voxel's signal and the dictionary of
+    its fitted LUT direction; its maps are FiberVolume, FW (and FW_blood,
+    FW_csf for Mouse), as the fit computes them."""
+    from amico_tpu.ops import native
+    K = evaluation.KERNELS
+    n_perp = K['D'].shape[0]
+    lam1 = float(evaluation.model.solver_params['lambda1'])
+    lam2 = float(evaluation.model.solver_params['lambda2'])
+    y = np.asarray(evaluation.y, np.float64)
+    maps = evaluation.RESULTS['MAPs'][evaluation.niiMASK_img == 1]
+    rng = np.random.RandomState(seed)
+    sel = rng.choice(y.shape[0], size=min(n, y.shape[0]), replace=False)
+    lut_idx = _lut.dir_to_lut_idx(
+        np.asarray(evaluation.DIRs, np.float64)[sel], evaluation.htable)
+    ref = []
+    for i, li in zip(sel, lut_idx):
+        A = np.column_stack([K['D'][:, li, :].T, K['CSF'].T]).astype(
+            np.float64)
+        x = native.lasso(A, y[i], lam1, lam2)
+        xs = x.sum() + 1e-16
+        v = x[:n_perp].sum() / xs
+        iso = [x[n_perp] / xs, x[n_perp + 1] / xs] if maps.shape[1] == 4 \
+            else []
+        ref.append([v, 1.0 - v] + iso)
+    return np.abs(maps[sel] - np.asarray(ref))
 
 
 def noddi_oracle_audit(evaluation, n: int = 1000, seed: int = 0) -> np.ndarray:

@@ -99,7 +99,10 @@ def test_package_sources_import_no_jax():
 def test_model_zoo(tmp_path):
     import amico_tpu_torch
     ev = amico_tpu_torch.Evaluation(str(tmp_path), 'subj', device='cpu')
-    for name in ('FreeWater', 'CylinderZeppelinBall', 'SANDI',
+    for name in ('NODDI', 'FreeWater'):
+        ev.set_model(name)
+        assert ev.model.id == name
+    for name in ('CylinderZeppelinBall', 'SANDI',
                  'StickZeppelinBall', 'VolumeFractions'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ev.set_model(name)
