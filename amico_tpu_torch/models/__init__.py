@@ -1,13 +1,14 @@
-"""Model zoo of the port.  NODDI and FreeWater are ported; the other four
-models of the JAX package are ROADMAP queue 1 and raise when asked for."""
+"""Model zoo of the port.  NODDI, FreeWater and CylinderZeppelinBall are
+ported; the other three models of the JAX package are ROADMAP queue 1 and
+raise when asked for."""
 from .base import BaseModel
+from .cylinder_zeppelin_ball import CylinderZeppelinBall
 from .free_water import FreeWater
 from .noddi import NODDI
 
-__all__ = ['BaseModel', 'FreeWater', 'NODDI']
+__all__ = ['BaseModel', 'CylinderZeppelinBall', 'FreeWater', 'NODDI']
 
 _NOT_PORTED = {
-    'CylinderZeppelinBall': 'CylinderZeppelinBall',
     'SANDI': 'SANDI',
     'StickZeppelinBall': 'StickZeppelinBall and VolumeFractions',
     'VolumeFractions': 'StickZeppelinBall and VolumeFractions',

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.cuda_qp import nneg_qp_tiles
+from ..ops.solvers import nneg_qp_batch
 
 
 def predict(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -33,18 +34,19 @@ def error_maps(A, x, Y, compute_rmse: bool, compute_nrmse: bool) -> dict:
 
 
 def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
-                backend: str = 'auto', m0=None, x0=None):
-    """Per-tile QP solve: G (C, n, n), b (C, M, n) -> x (C, M, n).
+                backend: str = 'pallas', m0=None, x0=None):
+    """Per-tile QP solve: G (C, n, n), b (C, M, n), L (C,) -> x (C, M, n).
 
-    'auto' and 'pallas' run the tile QP (``ops.cuda_qp.nneg_qp_tiles``: the
-    CUDA kernel on a CUDA device, its twin on the CPU).  ``L`` is accepted
-    and ignored (the solve estimates it per tile); ``m0``/``x0`` warm-start
-    the active-set rounds and skip FISTA."""
+    'pallas' runs the tile QP (``ops.cuda_qp.nneg_qp_tiles``: the CUDA
+    kernel on a CUDA device, its twin on the CPU), which estimates L per
+    tile and ignores ``L``.  'xla' runs the stagewise
+    ``ops.solvers.nneg_qp_batch`` on the per-tile Grams ``G[:, None]`` with
+    ``L[:, None]``, as the JAX package does.  ``m0``/``x0`` warm-start the
+    active-set rounds and skip FISTA."""
+    kw = dict(solver_kw or {})
     if backend == 'xla':
-        raise NotImplementedError(
-            "backend 'xla' (the stagewise nneg_qp_batch) is not ported yet "
-            '(ROADMAP, still to port: nneg_qp_batch)')
-    if backend not in ('auto', 'pallas'):
+        return nneg_qp_batch(G[:, None], b, lam1, lam2, mask=mask,
+                             L=L[:, None], m0=m0, x0=x0, **kw)
+    if backend != 'pallas':
         raise ValueError(f'unknown backend {backend!r}')
-    return nneg_qp_tiles(G, b, L, lam1, lam2, mask=mask, m0=m0, x0=x0,
-                         **dict(solver_kw or {}))
+    return nneg_qp_tiles(G, b, L, lam1, lam2, mask=mask, m0=m0, x0=x0, **kw)

@@ -33,8 +33,8 @@ DEFAULT_NODDI_STAGE_ITERS = ((0, 4, (4, 6, 8, 10), 1, False, 2),
                              (0, 6, (3, 5, 8, 10, 12, 14),
                               (1, 1, 2, 2, 2, 2), False, 2),
                              (6, (16, 10, 8, 8, 8, 8), 2))
-# single-solve models (FreeWater; CylinderZeppelinBall and SANDI once
-# ported), as in the JAX package: Lawson-Hanson from the empty working set
+# single-solve models (FreeWater; SANDI once ported), as in the JAX
+# package: Lawson-Hanson from the empty working set
 # with per-round CG budgets, and `converge` rounds past the schedule until
 # the tile's working sets are stable, so no support is cut at the round count
 DEFAULT_AS_SOLVER_KW = {
@@ -167,6 +167,23 @@ class BaseModel(ABC):
             'refine_rounds': int(sp.get('refine_rounds', DEFAULT_REFINE_ROUNDS)),
             'cg_iters': sp.get('cg_iters', DEFAULT_CG_ITERS),
         }
+
+    def _solver_backend(self) -> str:
+        """Resolve ``backend='auto'``: 'xla' (the stagewise solver) for a
+        model with the ``_prefer_xla_backend`` hint (CylinderZeppelinBall),
+        'pallas' (the tile kernels) otherwise, on either device.  The JAX
+        package resolves the same on its TPU; the hint was chosen from TPU
+        measurements and is kept so that 'auto' means the same in both
+        packages (ROADMAP: re-derive it on the H100)."""
+        backend = str(getattr(self, 'solver_params', {}).get(
+            'backend', DEFAULT_BACKEND))
+        if backend == 'auto':
+            backend = 'xla' if getattr(self, '_prefer_xla_backend', False) \
+                else 'pallas'
+        if backend not in ('xla', 'pallas'):
+            raise ValueError(f"backend must be 'auto', 'xla' or 'pallas', "
+                             f'got {backend!r}')
+        return backend
 
     # ------------------------------------------------- tiled fit driver
     def _run_tiled_fit(self, evaluation, fit_chunk_fn, n_outputs_like: dict,

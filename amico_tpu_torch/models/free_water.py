@@ -8,9 +8,10 @@ free-water-corrected DWI.  ``set``, ``get_params``, ``set_solver``,
 ``generate`` and ``resample`` are the JAX package's, in NumPy over the
 shared ``lut``/``synthesis`` modules.  ``fit`` builds the per-direction
 dictionaries and Grams once (:meth:`FreeWater.prepare`), then per chunk
-gathers the tiles' dictionaries, forms ``b = A'y`` and runs the tile QP
-(:func:`amico_tpu_torch.models._fitops.solve_tiles`): the CUDA kernel on a
-CUDA device, its plain PyTorch twin on the CPU.
+gathers the tiles' dictionaries, forms ``b = A'y`` and solves
+(:func:`amico_tpu_torch.models._fitops.solve_tiles`): the tile QP (the CUDA
+kernel on a CUDA device, its plain PyTorch twin on the CPU), or with
+``backend='xla'`` the stagewise solver.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from amico_tpu.synthesis import Ball, Zeppelin
 from amico_tpu.utils.logging import PRINT, get_verbose
 from amico_tpu.utils.progress import ProgressBar
 from ..device import resolve_device
-from ..ops.solvers import gram
+from ..ops.solvers import gram, power_iteration_L
 from ._fitops import error_maps, predict, project, solve_tiles
 from .base import BaseModel
 
@@ -70,8 +71,8 @@ class FreeWater(BaseModel):
                    cd_sweeps=None, refine_rounds=None, cg_iters=None,
                    backend=None):
         """Same signature and stored parameters as the JAX package's.
-        ``fit`` takes ``backend`` 'auto' or 'pallas' (the tile QP); 'xla'
-        raises until the stagewise solver is ported."""
+        ``backend`` 'auto' and 'pallas' run the tile QP, 'xla' the
+        stagewise solver (``ops.solvers.nneg_qp_batch``)."""
         self._set_solver_common(lambda1, lambda2, fista_iters, cd_sweeps,
                                 refine_rounds, cg_iters, backend)
 
@@ -128,8 +129,9 @@ class FreeWater(BaseModel):
     def prepare(self, kernels: dict, device) -> dict:
         """Device constants of the fit from a resampled KERNELS dict (as
         either package's ``resample`` returns it): per-direction
-        dictionaries ``A_all`` (ndirs, nS, n), zeppelins first, and their
-        Grams ``G_all`` (ndirs, n, n); both float32."""
+        dictionaries ``A_all`` (ndirs, nS, n), zeppelins first, their
+        Grams ``G_all`` (ndirs, n, n) and largest eigenvalues ``L_all``
+        (ndirs,) for the stagewise solver; all float32."""
         f32 = dict(dtype=torch.float32, device=torch.device(device))
         _, ndirs, nS = kernels['D'].shape
         K_D = torch.as_tensor(np.ascontiguousarray(
@@ -137,14 +139,16 @@ class FreeWater(BaseModel):
         K_CSF = torch.as_tensor(np.ascontiguousarray(kernels['CSF'].T), **f32)
         A_all = torch.cat([K_D, K_CSF[None].expand(ndirs, nS, -1)],
                           -1).contiguous()
-        return {'A_all': A_all, 'G_all': gram(A_all)}
+        G_all = gram(A_all)
+        return {'A_all': A_all, 'G_all': G_all,
+                'L_all': power_iteration_L(G_all)}
 
     def fit(self, evaluation):
         device = resolve_device(evaluation.get_config('device'))
         configs = self._common_configs(evaluation)
         save_corrected = bool(evaluation.get_config('doSaveCorrectedDWI'))
         solver_kw = self._solver_kwargs()
-        backend = self.solver_params.get('backend', 'auto')
+        backend = self._solver_backend()
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
         kernels = evaluation.KERNELS
@@ -154,8 +158,9 @@ class FreeWater(BaseModel):
 
         def fit_chunk(Y, dirs, valid):
             A = c['A_all'][dirs]                           # (C, nS, n)
-            x = solve_tiles(c['G_all'][dirs], project(A, Y), None, lam1,
-                            lam2, solver_kw=solver_kw, backend=backend)
+            x = solve_tiles(c['G_all'][dirs], project(A, Y),
+                            c['L_all'][dirs], lam1, lam2,
+                            solver_kw=solver_kw, backend=backend)
             x_sum = x.sum(-1) + 1e-16
             v = x[..., :n_perp].sum(-1) / x_sum
             maps = [v, 1.0 - v]

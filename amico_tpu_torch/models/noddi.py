@@ -6,7 +6,10 @@ the JAX package's, in NumPy over the shared ``lut``/``synthesis`` modules.
 (:meth:`NODDI.prepare`), then per chunk gathers the tiles' dictionaries,
 forms ``b1 = A'y`` and runs the fused 3-stage solve
 (:func:`amico_tpu_torch.ops.cuda_qp.noddi_fused_tiles`): the CUDA kernel
-on a CUDA device, its plain PyTorch twin on the CPU.
+on a CUDA device, its plain PyTorch twin on the CPU.  ``backend='xla'``
+runs the three stages one after the other on the stagewise solver
+(:func:`amico_tpu_torch.ops.solvers.nneg_qp_batch`), as the JAX package's
+XLA path does.
 
 References
 ----------
@@ -24,9 +27,31 @@ from amico_tpu.utils.logging import get_verbose
 from amico_tpu.utils.progress import ProgressBar
 from ..device import resolve_device
 from ..ops.cuda_qp import noddi_fused_tiles, noddi_schedules
-from ..ops.solvers import gram
-from ._fitops import error_maps, project
+from ..ops.solvers import gram, noddi_stage2_tiebreak, power_iteration_L
+from ._fitops import error_maps, project, solve_tiles
 from .base import DEFAULT_NODDI_STAGE_ITERS, BaseModel
+
+# CG budget of each tie-break candidate for set_solver(tiebreak=True), as in
+# the JAX package (base.DEFAULT_NODDI_TIEBREAK_CG)
+DEFAULT_NODDI_TIEBREAK_CG = 8
+
+
+def _kappa_neighbours(icvf: np.ndarray, kappa: np.ndarray):
+    """Per-atom index of the same-ICVF adjacent-kappa atom on the (IC_OD,
+    IC_VF) grid, ascending-kappa order, -1 at the grid edges (the JAX
+    package's helper): the stage-2 tie-break's candidates."""
+    n = icvf.shape[0]
+    nbm = np.full(n, -1, np.int32)
+    nbp = np.full(n, -1, np.int32)
+    for j in range(n):
+        same = np.where(np.isclose(icvf, icvf[j], rtol=1e-6, atol=1e-9))[0]
+        order = same[np.argsort(kappa[same], kind='stable')]
+        pos = int(np.nonzero(order == j)[0][0])
+        if pos > 0:
+            nbm[j] = order[pos - 1]
+        if pos + 1 < order.size:
+            nbp[j] = order[pos + 1]
+    return nbm, nbp
 
 
 class NODDI(BaseModel):
@@ -63,9 +88,10 @@ class NODDI(BaseModel):
                    backend=None, stage_iters=None, precision=None,
                    tiebreak=None):
         """Same signature and stored parameters as the JAX package's
-        ``NODDI.set_solver``.  ``fit`` takes ``backend`` 'auto' or
-        'pallas' (the fused solve), ``precision`` None or 'highest'
-        (float32) and no ``tiebreak``; the rest is ROADMAP work."""
+        ``NODDI.set_solver``.  ``backend`` 'auto' and 'pallas' run the
+        fused solve, which takes ``precision`` None or 'highest' (float32)
+        and no ``tiebreak``; 'xla' runs the stagewise solve, which takes
+        ``tiebreak`` and, as in the JAX package, ignores ``precision``."""
         self._set_solver_common(lambda1, lambda2, fista_iters, cd_sweeps,
                                 refine_rounds, cg_iters, backend)
         if stage_iters is not None:
@@ -157,9 +183,11 @@ class NODDI(BaseModel):
     def prepare(self, kernels: dict, device, merged_b0: bool = False) -> dict:
         """Device constants of the fit from a resampled KERNELS dict (as
         either package's ``resample`` returns it): per-direction
-        dictionaries ``A_all`` (ndirs, nS, na), Grams ``G1_all``/``G2_all``,
-        the scaled stage-2 dictionary transposed ``A2T_all`` (ndirs, n_wm,
-        ndwi), and ``iso_dwi``, ``icvf``, ``kappa``; all float32."""
+        dictionaries ``A_all`` (ndirs, nS, na), Grams ``G1_all``/``G2_all``
+        and their largest eigenvalues ``L1_all``/``L2_all`` (ndirs,), the
+        scaled stage-2 dictionary ``A2_all`` (ndirs, ndwi, n_wm) and its
+        transpose ``A2T_all``, and ``iso_dwi``, ``icvf``, ``kappa``; all
+        float32."""
         device = torch.device(device)
         n_wm, ndirs, nS = kernels['wm'].shape
         rows = torch.as_tensor(self._rows_dwi(merged_b0, nS), device=device)
@@ -174,8 +202,10 @@ class NODDI(BaseModel):
         cols.append(K_iso[None, :, None].expand(ndirs, nS, 1))
         A_all = torch.cat(cols, -1).contiguous()          # (ndirs, nS, na)
         A2_all = A_all[:, rows, :n_wm] * norms
-        return {'A_all': A_all, 'G1_all': gram(A_all),
-                'G2_all': gram(A2_all),
+        G1_all, G2_all = gram(A_all), gram(A2_all)
+        return {'A_all': A_all, 'G1_all': G1_all, 'G2_all': G2_all,
+                'L1_all': power_iteration_L(G1_all),
+                'L2_all': power_iteration_L(G2_all), 'A2_all': A2_all,
                 'A2T_all': A2_all.transpose(1, 2).contiguous(),
                 'iso_dwi': K_iso[rows].contiguous(),
                 'icvf': torch.as_tensor(kernels['icvf'], **f32),
@@ -183,20 +213,10 @@ class NODDI(BaseModel):
                 'rows_dwi': rows}
 
     def _stage_iters(self):
+        """The per-stage schedule: explicit ``stage_iters``, else the
+        uniform one the iteration knobs give, else the validated
+        default (the JAX package's order)."""
         sp = self.solver_params
-        if sp.get('backend', 'auto') not in ('auto', 'pallas'):
-            raise NotImplementedError(
-                f"backend {sp['backend']!r} (the stagewise solve) is not "
-                "ported yet (ROADMAP queue 1: nneg_qp_batch and "
-                "backend='xla'); use 'auto'")
-        if sp.get('tiebreak'):
-            raise NotImplementedError(
-                'the stage-2 tie-break is not ported (ROADMAP queue 2, K1 '
-                'follow-ups)')
-        if sp.get('precision') not in (None, 'highest'):
-            raise NotImplementedError(
-                f"precision {sp['precision']!r}: the port computes in "
-                'float32 only; the precision tiers are ROADMAP work')
         stage_iters = sp.get('stage_iters')
         if stage_iters is None:
             if sp.get('custom_iters'):
@@ -206,31 +226,128 @@ class NODDI(BaseModel):
                                (rr, cg, 2))
             else:
                 stage_iters = DEFAULT_NODDI_STAGE_ITERS
+        return stage_iters
+
+    def _fused_stage_iters(self):
+        """The fused solve's schedule; raises on what it does not take."""
+        sp = self.solver_params
+        if sp.get('tiebreak'):
+            raise NotImplementedError(
+                'the stage-2 tie-break of the fused solve is not ported '
+                "(ROADMAP queue 2, K1 follow-ups); backend='xla' runs it")
+        if sp.get('precision') not in (None, 'highest'):
+            raise NotImplementedError(
+                f"precision {sp['precision']!r}: the port computes in "
+                'float32 only; the precision tiers are ROADMAP work')
+        stage_iters = self._stage_iters()
         noddi_schedules(stage_iters)        # reject what the solve lacks
         return stage_iters
+
+    def _stagewise_kwargs(self) -> tuple:
+        """The stagewise solve's per-stage ``nneg_qp_batch`` arguments
+        from the schedule, as the JAX XLA path unpacks it: trailing
+        ``converge`` and ``add_k`` entries, and per-round inner-pass tuples
+        taken at their largest."""
+        s1, s2, s3 = self._stage_iters()
+        for t, base in ((s1, 4), (s2, 4), (s3, 3)):
+            if len(t) > base + 2:
+                raise ValueError(
+                    f'stage tuple {t} has {len(t)} entries; at most '
+                    f'{base + 2} are meaningful (base {base} + converge '
+                    '+ add_k)')
+        out = []
+        for t, base in ((s1, 4), (s2, 4), (s3, 3)):
+            fi = int(t[0]) if base == 4 else 0
+            rr, cg, ip = t[base - 3:base]
+            out.append(dict(
+                fista_iters=fi, cd_sweeps=0, refine_rounds=int(rr),
+                cg_iters=tuple(cg) if isinstance(cg, (tuple, list)) else cg,
+                inner_passes=max(ip) if isinstance(ip, (tuple, list))
+                else int(ip),
+                converge=t[base] if len(t) > base else False,
+                add_k=int(t[base + 1]) if len(t) > base + 1 else 1))
+        return tuple(out)
 
     def fit(self, evaluation):
         device = resolve_device(evaluation.get_config('device'))
         configs = self._common_configs(evaluation)
         modulated = bool(evaluation.get_config('doSaveModulatedMaps'))
-        stage_iters = self._stage_iters()
+        stagewise = self._solver_backend() == 'xla'
+        if stagewise:
+            kw1, kw2, kw3 = self._stagewise_kwargs()
+            tb = self.solver_params.get('tiebreak', False)
+            tb_cg = DEFAULT_NODDI_TIEBREAK_CG if tb is True else int(tb or 0)
+        else:
+            stage_iters = self._fused_stage_iters()
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
         is_exvivo = bool(self.isExvivo)
         want_x = configs['compute_rmse'] or configs['compute_nrmse']
-        c = self.prepare(evaluation.KERNELS, device,
+        kernels = evaluation.KERNELS
+        c = self.prepare(kernels, device,
                          bool(evaluation.get_config('doMergeB0')))
         rows = c['rows_dwi']
+        n_wm = kernels['wm'].shape[0]
+        na = c['A_all'].shape[-1]
+        if stagewise and tb_cg:
+            nb_m, nb_p = (torch.as_tensor(t, device=device)
+                          for t in _kappa_neighbours(
+                              np.asarray(kernels['icvf']),
+                              np.asarray(kernels['kappa'])))
+
+        def estimates(x):
+            """NDI, ODI, FWF (and dot) from the debiased x (C, M, na)."""
+            sum_atoms = x.sum(-1) + 1e-16
+            xn_wm = x[..., :n_wm] / sum_atoms[..., None]
+            sum_wm = xn_wm.sum(-1) + 1e-16
+            f1 = (c['icvf'] * xn_wm).sum(-1) / sum_wm
+            f2 = ((1.0 - c['icvf']) * xn_wm).sum(-1) / sum_wm
+            k1 = (c['kappa'] * xn_wm).sum(-1) / sum_wm
+            ndi = f1 / (f1 + f2 + 1e-16)
+            odi = 2.0 / np.pi * torch.atan2(torch.ones_like(k1), k1)
+            maps = [ndi, odi, x[..., -1] / sum_atoms]
+            if is_exvivo:
+                maps.append(x[..., na - 2] / sum_atoms)
+            return torch.stack(maps, -1)
+
+        def solve_stagewise(A_full, b1, Y, dirs):
+            """The JAX XLA path's three solves (models.pyx:911-942)."""
+            G1, L1 = c['G1_all'][dirs], c['L1_all'][dirs]
+            x1 = solve_tiles(G1, b1, L1, 0.0, 0.0, solver_kw=kw1,
+                             backend='xla')
+            Y2 = Y.index_select(-1, rows) - x1[..., -1:] * c['iso_dwi']
+            if is_exvivo:
+                Y2 = Y2 - x1[..., na - 2:na - 1]
+            b2 = project(c['A2_all'][dirs], torch.clamp(Y2, min=0.0))
+            G2 = c['G2_all'][dirs]
+            x2 = solve_tiles(G2, b2, c['L2_all'][dirs], lam1, lam2,
+                             solver_kw=kw2, backend='xla')
+            if tb_cg:
+                x2 = noddi_stage2_tiebreak(G2, b2, x2, lam1, lam2, nb_m,
+                                           nb_p, cg_iters=tb_cg)
+            # debias on the positive support, the working set seeded with
+            # it and CG warm-started from the stage-1 solution
+            mask = torch.cat([(x2 > 0.0).to(Y.dtype),
+                              torch.ones(Y.shape[:2] + (na - n_wm,),
+                                         dtype=Y.dtype, device=Y.device)],
+                             -1)
+            x = solve_tiles(G1, b1, L1, 0.0, 0.0, mask=mask, m0=mask,
+                            x0=x1 * mask, solver_kw=kw3, backend='xla')
+            return estimates(x), x
 
         def fit_chunk(Y, dirs, valid):
             A_full = c['A_all'][dirs]                      # (C, nS, na)
             b1 = project(A_full, Y)
-            out = noddi_fused_tiles(
-                c['G1_all'][dirs], c['G2_all'][dirs], b1,
-                Y.index_select(-1, rows), c['A2T_all'][dirs], c['iso_dwi'],
-                c['icvf'], c['kappa'], lam1=lam1, lam2=lam2,
-                stage_iters=stage_iters, want_x=want_x, is_exvivo=is_exvivo)
-            est, x = out if want_x else (out, None)
+            if stagewise:
+                est, x = solve_stagewise(A_full, b1, Y, dirs)
+            else:
+                out = noddi_fused_tiles(
+                    c['G1_all'][dirs], c['G2_all'][dirs], b1,
+                    Y.index_select(-1, rows), c['A2T_all'][dirs],
+                    c['iso_dwi'], c['icvf'], c['kappa'], lam1=lam1,
+                    lam2=lam2, stage_iters=stage_iters, want_x=want_x,
+                    is_exvivo=is_exvivo)
+                est, x = out if want_x else (out, None)
             vmask = valid[..., None].to(est.dtype)
             res = {'estimates': est * vmask}
             if want_x:

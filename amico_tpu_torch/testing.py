@@ -53,6 +53,34 @@ def demo_freewater(scheme: Scheme | None = None, type: str = 'Human',
     return _demo_model(model, scheme or demo_scheme(), kernels_dir)
 
 
+def czb_scheme() -> Scheme:
+    """The JAX bench's STEJSKALTANNER protocol for CylinderZeppelinBall:
+    1 b0 + 30 directions at b = 3000 + 30 at b = 6000 s/mm^2, Delta = 35
+    ms, delta = 15 ms (61 samples, 7 columns)."""
+    from amico_tpu.io.scheme import GAMMA
+    Delta, delta = 0.035, 0.015
+    rows = [np.array([[0, 0, 0, 0, Delta, delta, Delta + delta]])]
+    for b in (3000.0, 6000.0):
+        G = np.sqrt(b * 1e6 / (GAMMA ** 2 * delta ** 2 * (Delta - delta / 3)))
+        rows.append(np.c_[fibonacci_hemisphere(30), np.full(30, G),
+                          np.full(30, Delta), np.full(30, delta),
+                          np.full(30, Delta + delta)])
+    return Scheme(np.vstack(rows))
+
+
+def demo_czb(scheme: Scheme | None = None, kernels_dir: str | None = None,
+             Rs=None):
+    """Build the port's CylinderZeppelinBall model (the default 21 radii,
+    or ``Rs``) + resampled KERNELS + hash table on ``scheme`` (default
+    :func:`czb_scheme`), cached in ``kernels_dir`` as :func:`demo_noddi`
+    caches its atoms."""
+    from .models import CylinderZeppelinBall
+    model = CylinderZeppelinBall()
+    if Rs is not None:
+        model.set(Rs=Rs)
+    return _demo_model(model, scheme or czb_scheme(), kernels_dir)
+
+
 def _demo_model(model, scheme: Scheme, kernels_dir: str | None):
     model.set_solver()
     model.scheme = scheme
@@ -107,24 +135,31 @@ def demo_voxels(n: int, kernels: dict, htable: np.ndarray, seed: int = 0):
     return y, DIRs, lut_idx
 
 
+def _tiles(y: np.ndarray, lut_idx: np.ndarray, device, n_tiles: int):
+    """The first ``n_tiles`` 128-voxel tiles of voxels ``y`` as a model's
+    fit gathers them: signals Y (n_tiles, 128, nS) float32 and the tiles'
+    LUT directions (n_tiles,)."""
+    import torch
+    from .models.engine import build_tile_plan
+    plan = build_tile_plan(lut_idx, 128)
+    y_ext = torch.as_tensor(np.concatenate([y, np.zeros((1, y.shape[1]))]),
+                            dtype=torch.float32, device=device)
+    perm = torch.as_tensor(plan.perm[:n_tiles * 128].astype(np.int64),
+                           device=device)
+    dirs = torch.as_tensor(plan.tile_dirs[:n_tiles].astype(np.int64),
+                           device=device)
+    return y_ext[perm].view(n_tiles, 128, -1), dirs
+
+
 def noddi_tile_inputs(model, kernels, htable, device, n_tiles: int,
                       seed: int = 0) -> list:
     """The fused solve's inputs (G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf,
     kappa) for the first ``n_tiles`` 128-voxel tiles of ``demo_voxels``,
     built as ``model.fit`` builds them."""
-    import torch
     from .models._fitops import project
-    from .models.engine import build_tile_plan
     y, _, lut_idx = demo_voxels(n_tiles * 160, kernels, htable, seed=seed)
-    plan = build_tile_plan(lut_idx, 128)
+    Y, dirs = _tiles(y, lut_idx, device, n_tiles)
     c = model.prepare(kernels, device)
-    y_ext = torch.as_tensor(np.concatenate([y, np.zeros((1, y.shape[1]))]),
-                            dtype=torch.float32, device=device)
-    perm = torch.as_tensor(plan.perm[:n_tiles * 128].astype(np.int64),
-                           device=device)
-    Y = y_ext[perm].view(n_tiles, 128, -1)
-    dirs = torch.as_tensor(plan.tile_dirs[:n_tiles].astype(np.int64),
-                           device=device)
     return [c['G1_all'][dirs], c['G2_all'][dirs],
             project(c['A_all'][dirs], Y),
             Y.index_select(-1, c['rows_dwi']).contiguous(),
@@ -197,21 +232,86 @@ def freewater_tile_inputs(model, kernels, htable, device, n_tiles: int,
     """The tile QP's inputs [G, b] for the first ``n_tiles`` 128-voxel
     tiles of :func:`freewater_voxels`, built as ``FreeWater.fit`` builds
     them."""
-    import torch
     from .models._fitops import project
-    from .models.engine import build_tile_plan
     y, _, lut_idx, _ = freewater_voxels(n_tiles * 160, kernels, htable,
                                         seed=seed)
-    plan = build_tile_plan(lut_idx, 128)
+    Y, dirs = _tiles(y, lut_idx, device, n_tiles)
     c = model.prepare(kernels, device)
-    y_ext = torch.as_tensor(np.concatenate([y, np.zeros((1, y.shape[1]))]),
-                            dtype=torch.float32, device=device)
-    perm = torch.as_tensor(plan.perm[:n_tiles * 128].astype(np.int64),
-                           device=device)
-    Y = y_ext[perm].view(n_tiles, 128, -1)
-    dirs = torch.as_tensor(plan.tile_dirs[:n_tiles].astype(np.int64),
-                           device=device)
     return [c['G_all'][dirs], project(c['A_all'][dirs], Y)]
+
+
+def czb_voxels(n: int, kernels: dict, htable: np.ndarray, seed: int = 0):
+    """Random CylinderZeppelinBall mixtures through the actual dictionary
+    + noise, :func:`freewater_voxels`'s recipe over the 26 atoms (weights
+    U(0,1) on ~30% of the atoms, +0.5 on one atom, normalised; 0.002
+    Gaussian noise, clipped at 0), drawn in bulk.  Returns (y (n, nS),
+    DIRs (n, 3), true LUT directions (n,), weights W (n, n_atoms))."""
+    from .models.cylinder_zeppelin_ball import czb_dictionary
+    rng = np.random.RandomState(seed)
+    K = czb_dictionary(kernels)                        # (ndirs, nS, na)
+    na = K.shape[-1]
+    DIRs = rng.randn(n, 3)
+    DIRs /= np.linalg.norm(DIRs, axis=1, keepdims=True)
+    lut_idx = _lut.dir_to_lut_idx(DIRs, htable)
+    W = rng.rand(n, na) * (rng.rand(n, na) < 0.3)
+    W[np.arange(n), rng.randint(na, size=n)] += 0.5
+    W /= np.maximum(W.sum(1, keepdims=True), 1e-9)
+    y = np.empty((n, K.shape[1]), np.float64)
+    step = 8192
+    for i in range(0, n, step):
+        sl = slice(i, min(i + step, n))
+        y[sl] = np.einsum('bsa,ba->bs', K[lut_idx[sl]], W[sl])
+    y = np.clip(y + 0.002 * rng.randn(*y.shape), 0, None)
+    return y, DIRs, lut_idx, W
+
+
+def czb_tile_inputs(model, kernels, htable, device, n_tiles: int,
+                    seed: int = 0) -> list:
+    """The tile QP's inputs [G, b, L] for the first ``n_tiles`` 128-voxel
+    tiles of :func:`czb_voxels`, built as ``CylinderZeppelinBall.fit``
+    builds them."""
+    from .models._fitops import project
+    y, _, lut_idx, _ = czb_voxels(n_tiles * 160, kernels, htable, seed=seed)
+    Y, dirs = _tiles(y, lut_idx, device, n_tiles)
+    c = model.prepare(kernels, device)
+    return [c['G_all'][dirs], project(c['A_all'][dirs], Y), c['L_all'][dirs]]
+
+
+def czb_oracle_maps(model, A: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """v, a, d of the exact non-negative elastic net
+    ``amico_tpu.ops.native.lasso(A, y, 0, 4)`` (LARS, the reference's
+    algorithm) on one voxel, as the JAX bench's CylinderZeppelinBall oracle
+    computes them."""
+    from amico_tpu.ops import native
+    n_rs, n_perp = len(model.Rs), len(model.d_perps)
+    x = native.lasso(np.asarray(A, np.float64), np.asarray(y, np.float64),
+                     float(model.solver_params['lambda1']),
+                     float(model.solver_params['lambda2']))
+    f1 = x[:n_rs].sum()
+    f2 = x[n_rs:n_rs + n_perp].sum() + 1e-16
+    v = f1 / (f1 + f2 + 1e-16)
+    a = 1e6 * 2 * np.sum(model.Rs * x[:n_rs]) / (f1 + 1e-16)
+    return np.array([v, a, 4 * v / (np.pi * a ** 2 + 1e-16)])
+
+
+def czb_oracle_audit(evaluation, n: int = 1000, seed: int = 0) -> np.ndarray:
+    """|fitted - oracle| of v and a (n, 2) for ``n`` voxels of a fitted
+    CylinderZeppelinBall ``Evaluation``, sampled with ``seed``, against
+    :func:`czb_oracle_maps` on each voxel's signal and the dictionary of
+    its fitted LUT direction.  d = 4v/(pi a^2) is left out, as the JAX
+    bench leaves it out: it blows small diameter differences up on
+    near-empty voxels."""
+    from .models.cylinder_zeppelin_ball import czb_dictionary
+    K = czb_dictionary(evaluation.KERNELS)
+    y = np.asarray(evaluation.y, np.float64)
+    maps = evaluation.RESULTS['MAPs'][evaluation.niiMASK_img == 1]
+    rng = np.random.RandomState(seed)
+    sel = rng.choice(y.shape[0], size=min(n, y.shape[0]), replace=False)
+    lut_idx = _lut.dir_to_lut_idx(
+        np.asarray(evaluation.DIRs, np.float64)[sel], evaluation.htable)
+    ref = np.stack([czb_oracle_maps(evaluation.model, K[li], y[i])
+                    for i, li in zip(sel, lut_idx)])
+    return np.abs(maps[sel][:, :2] - ref[:, :2])
 
 
 def random_qp_problems(C: int, n: int, M: int = 128, m: int = 60,
@@ -237,16 +337,18 @@ def freewater_maps(x, n_perp: int):
     return torch.cat([v, 1.0 - v, iso], -1)
 
 
-def qp_agreement(G, b, lam1, lam2, x_kernel, x_twin,
-                 n_perp: int | None = None) -> dict:
-    """How the tile QP's kernel agrees with its twin on the same inputs:
-    |x_k - x_t| by median, p95 and max; the objective 1/2 x'Gx - b'x +
-    lam1 sum(x) + lam2/2 |x|^2 in float64, as the 99th percentile and max
-    of the relative gap, and the shares of voxels whose kernel objective is
-    worse (and better) than the twin's by more than 1e-3 relative.  With
-    ``n_perp``, also FreeWater's maps (:func:`freewater_maps`) by median,
-    p95 and max: adjacent zeppelins are near-collinear, so x can move
-    between them at no cost in the objective, and the maps cannot."""
+def qp_agreement(G, b, lam1, lam2, x_kernel, x_twin, maps=None) -> dict:
+    """How two solves of the same tile QPs agree (the kernel and its twin,
+    or the kernel and the stagewise solver): |x_k - x_t| by median, p95
+    and max; the objective 1/2 x'Gx - b'x + lam1 sum(x) + lam2/2 |x|^2 in
+    float64, as the 99th percentile and max of the relative gap, and the
+    shares of voxels whose kernel objective is worse (and better) than the
+    twin's by more than 1e-3 relative.  With ``maps`` (a function of x to
+    (..., k) maps, such as :func:`freewater_maps`), also the maps by
+    median, p95 and max, per map as ``map_*`` lists and over all maps as
+    ``map_median`` etc.: FreeWater's adjacent zeppelins are
+    near-collinear, so x can move between them at no cost in the
+    objective, and the maps cannot."""
     G, b = G.double(), b.double()
 
     def obj(x):
@@ -264,27 +366,37 @@ def qp_agreement(G, b, lam1, lam2, x_kernel, x_twin,
            'obj_gap_max': float(np.abs(rel).max()),
            'obj_share_worse': float(np.mean(rel > 1e-3)),
            'obj_share_better': float(np.mean(rel < -1e-3))}
-    if n_perp is not None:
-        merr = (freewater_maps(x_kernel, n_perp)
-                - freewater_maps(x_twin, n_perp)).abs().cpu().numpy()
+    if maps is not None:
+        merr = (maps(x_kernel) - maps(x_twin)).abs().cpu().numpy()
+        merr = merr.reshape(-1, merr.shape[-1])
         out.update(map_median=float(np.median(merr)),
                    map_p95=float(np.percentile(merr, 95)),
-                   map_max=float(merr.max()))
+                   map_max=float(merr.max()),
+                   map_medians=np.median(merr, 0).tolist(),
+                   map_p95s=np.percentile(merr, 95, 0).tolist(),
+                   map_maxs=merr.max(0).tolist())
     return out
 
 
 def write_demo_subject(subject_dir: str, scheme: Scheme, y: np.ndarray,
                        dim: tuple, s0: float = 1000.0) -> None:
     """Write voxel signals ``y`` (prod(dim), nS), scaled by ``s0``, as
-    ``DWI.nii`` (float32, 2 mm voxels) and ``scheme`` as ``DWI.scheme``."""
+    ``DWI.nii`` (float32, 2 mm voxels) and ``scheme`` as ``DWI.scheme``:
+    ``VERSION: BVECTOR`` with 4 columns, or for a STEJSKALTANNER scheme
+    ``VERSION: 1`` with all 7."""
     from amico_tpu.io import nifti
     os.makedirs(subject_dir, exist_ok=True)
     vol = (s0 * np.asarray(y)).astype(np.float32).reshape(
         tuple(dim) + (y.shape[1],))
     nifti.save(nifti.Nifti1Image(vol, np.diag([2.0, 2.0, 2.0, 1.0])),
                os.path.join(subject_dir, 'DWI.nii'))
-    np.savetxt(os.path.join(subject_dir, 'DWI.scheme'), scheme.raw[:, :4],
-               fmt='%.6f', header='VERSION: BVECTOR', comments='')
+    if scheme.version == 1:
+        np.savetxt(os.path.join(subject_dir, 'DWI.scheme'), scheme.raw,
+                   fmt='%.10g', header='VERSION: 1', comments='')
+    else:
+        np.savetxt(os.path.join(subject_dir, 'DWI.scheme'),
+                   scheme.raw[:, :4], fmt='%.6f', header='VERSION: BVECTOR',
+                   comments='')
 
 
 def noddi_oracle_voxel(kernels, dwi_idx, y_i, lut_i, lam1=0.5, lam2=1e-3):

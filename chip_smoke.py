@@ -28,7 +28,26 @@ Phases; any failure exits non-zero and prints no result line:
    and protocol) through Evaluation(device='cuda') with
    doSaveCorrectedDWI, load_data -> save_results, with the tile QP's
    launch count, the DTI directions, map sanity, the written files and an
-   exact-oracle audit of 1,000 sampled voxels.
+   exact-oracle audit of 1,000 sampled voxels;
+7. build-cache probe (T1): ``amico_tpu_torch.tools.loc_experiment``'s
+   candidates (the build key from two call sites and from a second process
+   in another working directory, which must reuse the build), then T1
+   against its twin, bit for bit, on (8, 128) and on an odd size, both
+   timed;
+8. CylinderZeppelinBall main path: a 409,600-voxel ACTIVEAX subject on the
+   JAX bench's STEJSKALTANNER protocol (1 b0 + 30 @ b=3000 + 30 @
+   b=6000, VERSION: 1 scheme; 21 radii + 4 zeppelins + 1 ball) through
+   Evaluation(device='cuda'), load_data -> save_results with
+   backend='auto', which is the stagewise solver: map ranges, the written
+   files, the DTI directions, an exact-oracle audit of 1,000 voxels, first
+   and second fit;
+9. the same subject with backend='pallas' (K2 at n = 26): its launch
+   count, its maps against the stagewise run's, and K2, its twin and the
+   stagewise solver on 512 CZB tiles (agreement by maps and objective,
+   times);
+10. NODDI with backend='xla' (the stagewise solve) on phase 4's subject:
+   its maps against the fused path's by distribution, and the oracle audit
+   at phase 4's bounds.
 
 The kernels are built in phase 2; every launch count is read from the main
 path's run alone (counts set to 0 just before it).  The last two lines are
@@ -41,6 +60,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 sys.modules['jax'] = None       # the port must run where JAX is absent
 
@@ -98,6 +119,42 @@ FW_DIRS_AGREE = 0.999
 # JAX package read median 3.7e-5 (XLA) / 4.8e-5 (Pallas), p95 4.3e-4, max
 # 1.3e-3 on 2,048 voxels of this protocol (CPU)
 FW_AUDIT_MEDIAN, FW_AUDIT_P95, FW_AUDIT_MAX = 1e-4, 1e-3, 5e-3
+# T1 against its twin: bit for bit (2x is exact in float32, so the kernel's
+# fma(x, 2, 1) rounds as the twin's x * 2 + 1); the odd size runs the
+# grid-stride loop's ragged edge
+T1_ODD = 1_000_003
+# CylinderZeppelinBall (phases 8-9).  Oracle audit against native.lasso(A,
+# y, 0, 4) on v and a (d = 4v/(pi a^2) is left out, as the JAX bench
+# leaves it out).  The JAX package's stagewise path read v median 2.5e-7,
+# p95 7.2e-7, max 2.8e-5 and a (um) 3.4e-6, 1.0e-5, 2.0e-5 on 1,000 of
+# 4,096 voxels of this protocol, its Pallas kernel v 3.1e-7 / 9.9e-7 /
+# 2.7e-5, a 4.5e-6 / 1.4e-5 / 3.2e-5 (CPU); the bounds sit well inside
+# tests/test_solver_review.py's (v median 2e-3, p95 2e-2; a median 2e-2).
+# (median, p95, max)
+CZB_AUDIT = {'v': (2e-5, 2e-4, 2e-3), 'a': (2e-4, 2e-3, 2e-2)}
+# backend='pallas' (K2) against backend='auto' (the stagewise solver): the
+# JAX package's Pallas kernel against its XLA path read v median 3.6e-7,
+# p95 1.1e-6, max 2.4e-6 and a 5.7e-6, 1.7e-5, 4.7e-5 on 4,096 fitted
+# voxels (CPU): the lambda2 = 4 ridge makes the QP strongly convex, one
+# vertex for both.  On 64 CZB tiles (CPU) K2's twin against the stagewise
+# solver read v max 1.3e-6, a max 2.0e-5 and an objective gap of p99
+# 6.0e-13, max 1.3e-12 (the JAX package's pair: 1.9e-12).  Bounds on maps
+# as for the audit; the objective both ways (p99 of the relative gap) and
+# one way (share of voxels where K2's is worse by > 1e-3 relative)
+CZB_BACKENDS = {'v': (1e-5, 1e-4, 1e-3), 'a': (1e-4, 1e-3, 1e-2)}
+CZB_OBJ_P99, CZB_OBJ_WORSE = 1e-5, 1e-3
+# the DTI directions against the true ones on voxels whose weight lies
+# mostly (> 0.5) on the cylinders and the zeppelins with d_perp < d_par:
+# 0.999975 agree on the 39,761 such voxels of a 40,000-voxel draw of this
+# subject, 0.999925 of all (port's OLS on the CPU)
+CZB_DIRS_AGREE = 0.999
+# NODDI with backend='xla' against the fused path (phase 4's maps) by
+# distribution: the port's stagewise fit against its fused twin read
+# median 0, p95 3.0e-8, max 1.2e-2 and 0.9% of voxels off by > 5e-3, the
+# JAX stagewise path against the fused twin median 3.0e-5, p95 2.6e-3,
+# max 3.3e-2 and 6.1% off, on 2,048 voxels of this protocol (CPU); the
+# stage-2 vertex is degenerate below f32 resolution
+NODDI_XLA_MEDIAN, NODDI_XLA_P95, NODDI_XLA_SHARE_OFF = 5e-5, 5e-3, 0.1
 
 
 def log(*a):
@@ -263,7 +320,7 @@ def phase_main_path(study, lut_true):
         f'FWF {err[:, 2].max():.3g}')
     check(med < AUDIT_MEDIAN and p95 < AUDIT_P95 and mx < AUDIT_MAX,
           'oracle audit outside its bounds')
-    return launches
+    return launches, maps.astype(np.float64)
 
 
 def phase_qp_vs_twin(scheme, tmp):
@@ -276,8 +333,10 @@ def phase_qp_vs_twin(scheme, tmp):
                                              DEFAULT_VOXELS_PER_CHUNK,
                                              DENSE_AS_SOLVER_KW)
     from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, nneg_qp_tiles_torch
-    from amico_tpu_torch.testing import (demo_freewater, freewater_tile_inputs,
-                                         qp_agreement, random_qp_problems)
+    from functools import partial
+    from amico_tpu_torch.testing import (demo_freewater, freewater_maps,
+                                         freewater_tile_inputs, qp_agreement,
+                                         random_qp_problems)
     step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
 
     def run(fn, G, b, lam2, kw):
@@ -302,7 +361,8 @@ def phase_qp_vs_twin(scheme, tmp):
         torch.cuda.synchronize()
         check(bool(torch.isfinite(x_k).all() and (x_k >= 0).all()),
               f'tile QP kernel output not finite and >= 0 ({name})')
-        a = qp_agreement(G, b, 0.0, lam2, x_k, x_t, n_perp=n_perp)
+        a = qp_agreement(G, b, 0.0, lam2, x_k, x_t, maps=None if n_perp is None
+                         else partial(freewater_maps, n_perp=n_perp))
         key = 'x' if n_perp is None else 'map'
         first = (G[:step], b[:step])
         ms = cuda_ms(lambda: nneg_qp_tiles(*first, None, 0.0, lam2, **kw), 5)
@@ -399,13 +459,268 @@ def phase_fw_main_path(study, lut_true, aniso):
     return launches
 
 
+def phase_loc_probe():
+    """T1's path, the build-cache probe, then T1 against its twin; returns
+    the launch count of the probe's run, the largest |kernel - twin| and
+    the kernel's and twin's ms per call at (8, 128)."""
+    import torch
+    from amico_tpu_torch.ops.loc_probe import loc_probe, loc_probe_torch
+    from amico_tpu_torch.tools import loc_experiment
+    from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
+    loc_probe.launches = nneg_qp_tiles.launches = 0
+    noddi_fused_tiles.launches = 0
+    t0 = time.time()
+    rows = loc_experiment.probe()
+    launches = loc_probe.launches
+    for row in rows:
+        log('loc probe: ' + loc_experiment.line(row))
+    log(f'loc probe: {time.time() - t0:.2f} s; T1 launches {launches}')
+    check(launches > 0, 'the probe never launched T1')
+    check(all(r['stable'] for r in rows), 'the build key drifts')
+    check(rows[-1]['reused'], 'the second process built the kernels anew')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    worst, times = 0.0, {}
+    for shape in ((8, 128), (T1_ODD,)):
+        x = torch.randn(shape, device='cuda', generator=gen) * 1e3
+        o, t = loc_probe(x), loc_probe_torch(x)
+        torch.cuda.synchronize()
+        check(torch.equal(o, t), f'T1 differs from its twin at {shape}')
+        worst = max(worst, float((o - t).abs().max()))
+        times[shape] = (cuda_ms(lambda: loc_probe(x), 200),
+                        cuda_ms(lambda: loc_probe_torch(x), 200))
+        log(f'T1 vs twin {shape}: bit-equal; kernel {times[shape][0]:.4f} ms, '
+            f'twin {times[shape][1]:.4f} ms per call (CUDA events)')
+    return launches, worst, times[(8, 128)]
+
+
+def map_err(a, b):
+    e = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(np.median(e)), float(np.percentile(e, 95)), float(e.max())
+
+
+def phase_czb_main_path(study, lut_true, aniso):
+    """CylinderZeppelinBall with backend='auto' (the stagewise solver);
+    returns the Evaluation and its masked maps."""
+    import amico_tpu_torch
+    from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
+    from amico_tpu_torch.ops.loc_probe import loc_probe
+    from amico_tpu_torch.testing import czb_oracle_audit, direction_agreement
+    nneg_qp_tiles.launches = noddi_fused_tiles.launches = 0
+    loc_probe.launches = 0
+    t0 = time.time()
+    ev = amico_tpu_torch.Evaluation(study, 'subj', device='cuda')
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    check(ev.scheme.version == 1, 'the scheme was not read as VERSION: 1')
+    ev.set_model('CylinderZeppelinBall')
+    check(ev.model._solver_backend() == 'xla',
+          "backend 'auto' did not resolve to the stagewise solver")
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    t_fit = time.time()
+    ev.fit()
+    fit_s = time.time() - t_fit
+    ev.save_results()
+    log(f'CZB main path (auto = stagewise): {time.time() - t0:.2f} s end to '
+        f'end, first fit {fit_s:.3f} s; launches: tile QP '
+        f'{nneg_qp_tiles.launches}, fused NODDI {noddi_fused_tiles.launches}')
+    n_vox = int(np.count_nonzero(ev.niiMASK_img == 1))
+    log('stage times (s): ' + json.dumps(
+        {k: round(v, 4) for k, v in ev.timers.times.items()}))
+    log('fit breakdown (s): ' + json.dumps(
+        {k: round(v, 4) for k, v in ev._last_fit_facade_timers.items()})
+        + ' engine: ' + json.dumps(
+        {k: round(v, 4) for k, v in ev.model._last_fit_timers.items()}))
+    log(f'CZB first fit: {n_vox} voxels in {fit_s:.3f} s = '
+        f'{n_vox / fit_s:.0f} voxels/s')
+    maps = ev.RESULTS['MAPs'][ev.niiMASK_img == 1].copy()
+    check(maps.shape == (n_vox, 3), f'maps shape {maps.shape}')
+    check(bool(np.isfinite(maps).all()), 'maps not finite')
+    v, a, d = maps.T
+    check(bool((v >= 0).all() and (v <= 1).all()),
+          f'v outside [0, 1]: {v.min()} .. {v.max()}')
+    check(bool((a >= 0).all() and (a < 20).all()),
+          f'a outside [0, 20) um: {a.min()} .. {a.max()}')
+    check(bool((d >= 0).all()), f'd below 0: {d.min()}')
+    log(f'CZB maps: v {v.min():.4g} .. {v.max():.4g}, a {a.min():.4g} .. '
+        f'{a.max():.4g} um, d {d.min():.4g} .. {d.max():.4g}')
+    for name in ('v', 'a', 'd', 'dir'):
+        check(os.path.isfile(os.path.join(
+            study, 'subj', 'AMICO', 'CylinderZeppelinBall',
+            f'fit_{name}.nii.gz')), f'fit_{name}.nii.gz not written')
+    agree_all = direction_agreement(ev, lut_true)
+    agree = direction_agreement(ev, lut_true, aniso)
+    log(f'DTI directions (card): LUT direction of the true one on '
+        f'{agree_all:.6f} of all voxels, {agree:.6f} of the {int(aniso.sum())}'
+        ' voxels mostly on cylinders and prolate zeppelins')
+    check(agree >= CZB_DIRS_AGREE, 'the DTI directions disagree with the truth')
+    t_fit = time.time()
+    ev.fit()
+    warm_s = time.time() - t_fit
+    log(f'CZB second fit: {warm_s:.3f} s = {n_vox / warm_s:.0f} voxels/s; '
+        'engine: ' + json.dumps(
+            {k: round(v, 4) for k, v in ev.model._last_fit_timers.items()}))
+    t_a = time.time()
+    err = czb_oracle_audit(ev, n=1000, seed=0)
+    stats = {k: map_err(err[:, i], 0.0) for i, k in enumerate('va')}
+    log(f'CZB oracle audit (1000 voxels, {time.time() - t_a:.1f} s): '
+        + ', '.join(f'{k} median {m:.3g} p95 {p:.3g} max {x:.3g}'
+                    for k, (m, p, x) in stats.items()))
+    for k, got in stats.items():
+        check(all(g < b for g, b in zip(got, CZB_AUDIT[k])),
+              f'CZB oracle audit of {k} outside its bounds')
+    return ev, maps
+
+
+def phase_czb_pallas(ev, maps_auto):
+    """The same subject with backend='pallas' (K2), held against the
+    stagewise run; then K2, its twin and the stagewise solver on 512 CZB
+    tiles.  Returns K2's launch count, the fit times and the tiles'
+    agreement and times."""
+    import torch
+    from amico_tpu_torch.models.base import (DEFAULT_TILE_SIZE,
+                                             DEFAULT_VOXELS_PER_CHUNK,
+                                             DENSE_AS_SOLVER_KW)
+    from amico_tpu_torch.models.cylinder_zeppelin_ball import czb_estimates
+    from amico_tpu_torch.ops.cuda_qp import (nneg_qp_tiles,
+                                             nneg_qp_tiles_torch,
+                                             noddi_fused_tiles)
+    from amico_tpu_torch.ops.loc_probe import loc_probe
+    from amico_tpu_torch.ops.solvers import nneg_qp_batch
+    from amico_tpu_torch.testing import czb_tile_inputs, qp_agreement
+    n_vox = maps_auto.shape[0]
+    nneg_qp_tiles.launches = noddi_fused_tiles.launches = 0
+    loc_probe.launches = 0
+    ev.set_solver(backend='pallas')
+    check(ev.model._solver_backend() == 'pallas', 'backend is not pallas')
+    t0 = time.time()
+    ev.fit()
+    fit_s = time.time() - t0
+    launches = nneg_qp_tiles.launches
+    log(f'CZB pallas first fit: {fit_s:.3f} s = {n_vox / fit_s:.0f} '
+        f'voxels/s; tile QP launches {launches}; engine: ' + json.dumps(
+            {k: round(v, 4) for k, v in ev.model._last_fit_timers.items()}))
+    check(launches > 0, 'the CZB pallas fit never launched the tile QP')
+    maps = ev.RESULTS['MAPs'][ev.niiMASK_img == 1]
+    check(bool(np.isfinite(maps).all()), 'pallas maps not finite')
+    for i, k in enumerate('va'):
+        got = map_err(maps[:, i], maps_auto[:, i])
+        log(f'CZB pallas vs stagewise, {k}: median {got[0]:.3g} p95 '
+            f'{got[1]:.3g} max {got[2]:.3g}')
+        check(all(g < b for g, b in zip(got, CZB_BACKENDS[k])),
+              f'CZB pallas maps disagree with the stagewise run ({k})')
+    t0 = time.time()
+    ev.fit()
+    warm_s = time.time() - t0
+    log(f'CZB pallas second fit: {warm_s:.3f} s = {n_vox / warm_s:.0f} '
+        'voxels/s; engine: ' + json.dumps(
+            {k: round(v, 4) for k, v in ev.model._last_fit_timers.items()}))
+
+    step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
+    G, b, L = czb_tile_inputs(ev.model, ev.KERNELS, ev.htable, 'cuda', step,
+                              seed=1)
+    kw = DENSE_AS_SOLVER_KW
+    Rs = torch.as_tensor(ev.model.Rs, dtype=torch.float32, device='cuda')
+
+    def czb_maps(x):
+        return czb_estimates(x, Rs, len(ev.model.d_perps))[..., :2]
+
+    def stagewise():
+        return nneg_qp_batch(G[:, None], b, 0.0, 4.0, L=L[:, None], **kw)
+
+    x_k = nneg_qp_tiles(G, b, None, 0.0, 4.0, **kw)
+    x_t = nneg_qp_tiles_torch(G, b, None, 0.0, 4.0, **kw)
+    x_s = stagewise()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(x_k).all() and (x_k >= 0).all()),
+          'tile QP output not finite and >= 0 (CZB)')
+    for name, x_ref in (('stagewise', x_s), ('twin', x_t)):
+        a = qp_agreement(G, b, 0.0, 4.0, x_k, x_ref, maps=czb_maps)
+        log(f'K2 vs {name} (CZB, {G.shape[0]} tiles x {b.shape[1]} voxels, '
+            f'n = {b.shape[2]}): v median {a["map_medians"][0]:.3g} p95 '
+            f'{a["map_p95s"][0]:.3g} max {a["map_maxs"][0]:.3g}; a median '
+            f'{a["map_medians"][1]:.3g} p95 {a["map_p95s"][1]:.3g} max '
+            f'{a["map_maxs"][1]:.3g}; x max {a["x_max"]:.3g}; objective gap '
+            f'p99 {a["obj_gap_p99"]:.3g} max {a["obj_gap_max"]:.3g}, K2 worse '
+            f'> 1e-3 on {a["obj_share_worse"]:.4g} (better on '
+            f'{a["obj_share_better"]:.4g}) of voxels')
+        for i, k in enumerate('va'):
+            got = (a['map_medians'][i], a['map_p95s'][i], a['map_maxs'][i])
+            check(all(g < bd for g, bd in zip(got, CZB_BACKENDS[k])),
+                  f'K2 disagrees with the {name} on CZB tiles ({k})')
+        check(a['obj_gap_p99'] < CZB_OBJ_P99
+              and a['obj_share_worse'] < CZB_OBJ_WORSE,
+              f'K2 objective disagrees with the {name} on CZB tiles')
+    times = {'k2': cuda_ms(lambda: nneg_qp_tiles(G, b, None, 0.0, 4.0, **kw),
+                           5),
+             'twin': cuda_ms(lambda: nneg_qp_tiles_torch(G, b, None, 0.0, 4.0,
+                                                         **kw), 2),
+             'stagewise': cuda_ms(stagewise, 2)}
+    log(f'CZB tiles ({step} x 128 voxels, n = 26): K2 {times["k2"]:.3f} ms, '
+        f'twin {times["twin"]:.3f} ms, stagewise {times["stagewise"]:.3f} ms '
+        'per call (CUDA events)')
+
+
+def phase_noddi_xla(study, maps_fused):
+    """NODDI with backend='xla' on phase 4's subject, against the fused
+    path's maps and the exact oracle."""
+    import amico_tpu_torch
+    from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
+    from amico_tpu_torch.ops.loc_probe import loc_probe
+    from amico_tpu_torch.testing import noddi_oracle_audit
+    nneg_qp_tiles.launches = noddi_fused_tiles.launches = 0
+    loc_probe.launches = 0
+    ev = amico_tpu_torch.Evaluation(study, 'subj', device='cuda')
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    ev.set_model('NODDI')
+    ev.set_solver(backend='xla')
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    n_vox = int(np.count_nonzero(ev.niiMASK_img == 1))
+    for fit in ('first', 'second'):
+        t0 = time.time()
+        ev.fit()
+        fit_s = time.time() - t0
+        log(f'NODDI xla {fit} fit: {fit_s:.3f} s = {n_vox / fit_s:.0f} '
+            'voxels/s; fit breakdown (s): ' + json.dumps(
+                {k: round(v, 4)
+                 for k, v in ev._last_fit_facade_timers.items()})
+            + ' engine: ' + json.dumps(
+                {k: round(v, 4)
+                 for k, v in ev.model._last_fit_timers.items()}))
+    log(f'NODDI xla launches: fused NODDI {noddi_fused_tiles.launches}, tile '
+        f'QP {nneg_qp_tiles.launches}')
+    check(noddi_fused_tiles.launches == 0, 'the xla path ran the fused kernel')
+    maps = ev.RESULTS['MAPs'][ev.niiMASK_img == 1]
+    check(maps.shape == maps_fused.shape and bool(np.isfinite(maps).all()),
+          'NODDI xla maps malformed')
+    check(bool((maps >= 0).all() and (maps <= 1).all()),
+          'NODDI xla maps outside [0, 1]')
+    e = np.abs(maps.astype(np.float64) - maps_fused)
+    med, p95, mx = float(np.median(e)), float(np.percentile(e, 95)), \
+        float(e.max())
+    off = float(np.mean(e.max(-1) > 5e-3))
+    log(f'NODDI xla vs fused ({n_vox} voxels): median {med:.3g} p95 '
+        f'{p95:.3g} max {mx:.3g}; voxels off > 5e-3 {off:.4g}')
+    check(med < NODDI_XLA_MEDIAN and p95 < NODDI_XLA_P95
+          and off < NODDI_XLA_SHARE_OFF,
+          'NODDI xla disagrees with the fused path')
+    t_a = time.time()
+    err = noddi_oracle_audit(ev, n=1000, seed=0)
+    med, p95, mx = np.median(err), np.percentile(err, 95), err.max()
+    log(f'NODDI xla oracle audit (1000 voxels, {time.time() - t_a:.1f} s): '
+        f'median {med:.3g} p95 {p95:.3g} max {mx:.3g}')
+    check(med < AUDIT_MEDIAN and p95 < AUDIT_P95 and mx < AUDIT_MAX,
+          'NODDI xla oracle audit outside its bounds')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         log('FAILED: torch.cuda.is_available() is false')
         return 1
     import amico_tpu_torch
-    from amico_tpu_torch.testing import (demo_freewater, demo_noddi,
+    from amico_tpu_torch.testing import (czb_scheme, czb_voxels, demo_czb,
+                                         demo_freewater, demo_noddi,
                                          demo_scheme, demo_voxels,
                                          freewater_voxels, write_demo_subject)
     amico_tpu_torch.set_verbose(1)
@@ -430,7 +745,8 @@ def main():
         write_demo_subject(os.path.join(study, 'subj'), scheme, y, VOL_DIM)
         del y
         log(f'subject written: {time.time() - t0:.1f} s')
-        launches = phase_main_path(study, lut_true)
+        launches, noddi_maps = phase_main_path(study, lut_true)
+        noddi_study = study
         del lut_true
         qp_err, (qp_ms, qp_plain_ms) = phase_qp_vs_twin(scheme, tmp)
         model, fw_kernels, htable = demo_freewater(
@@ -445,6 +761,25 @@ def main():
         del y, W
         log(f'FreeWater subject written: {time.time() - t0:.1f} s')
         qp_launches = phase_fw_main_path(study, lut_true, aniso)
+        t1_launches, t1_err, (t1_ms, t1_plain_ms) = phase_loc_probe()
+        t0 = time.time()
+        czb_model, czb_kernels, htable = demo_czb(
+            czb_scheme(), os.path.join(tmp, 'czb'))
+        study = os.path.join(tmp, 'study_czb')
+        y, _, lut_true, W = czb_voxels(N_VOXELS, czb_kernels, htable, seed=7)
+        prolate = np.r_[np.ones(len(czb_model.Rs), bool),
+                        czb_model.d_perps < czb_model.d_par,
+                        np.zeros(len(czb_model.d_isos), bool)]
+        aniso = W[:, prolate].sum(1) > 0.5
+        write_demo_subject(os.path.join(study, 'subj'), czb_scheme(), y,
+                           VOL_DIM)
+        del y, W
+        log(f'CZB kernels and subject written: {time.time() - t0:.1f} s')
+        ev, czb_maps = phase_czb_main_path(study, lut_true, aniso)
+        del lut_true
+        phase_czb_pallas(ev, czb_maps)
+        del ev
+        phase_noddi_xla(noddi_study, noddi_maps)
     log(json.dumps({'kernels': [{
         'name': 'noddi_fused', 'route': 'cuda',
         'source': 'amico_tpu_torch/csrc/noddi_fused.cu',
@@ -455,7 +790,12 @@ def main():
         'source': 'amico_tpu_torch/csrc/nneg_qp.cu',
         'replaces': 'amico_tpu/ops/pallas_qp.py:432',
         'launches': qp_launches, 'max_abs_err': qp_err,
-        'ms': qp_ms, 'plain_ms': qp_plain_ms}]}))
+        'ms': qp_ms, 'plain_ms': qp_plain_ms}, {
+        'name': 'loc_probe', 'route': 'cuda',
+        'source': 'amico_tpu_torch/csrc/loc_probe.cu',
+        'replaces': 'tools/loc_experiment.py:34',
+        'launches': t1_launches, 'max_abs_err': t1_err,
+        'ms': t1_ms, 'plain_ms': t1_plain_ms}]}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -1,7 +1,9 @@
-"""The CUDA kernels (the fused NODDI solve K1, the tile QP K2) against their
-plain PyTorch twins, both on the card, and the kernels' launch counters.  Every test needs a CUDA card and
-skips without one; the module imports no JAX, so it also runs where JAX is
-absent:
+"""The CUDA kernels (the fused NODDI solve K1, the tile QP K2, the build-cache
+probe T1) against their plain PyTorch twins, both on the card, and the
+kernels' launch counters; the stagewise solver on the card against the CPU,
+and K2 against it on CylinderZeppelinBall tiles.  Every test needs a CUDA
+card and skips without one; the module imports no JAX, so it also runs where
+JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -158,7 +160,9 @@ def test_nneg_qp_kernel_matches_twin(freewater, case):
     """chip_smoke.py's three cases at 64 tiles, at its bounds: FreeWater
     maps (or, on the random problems, x) by median, p95 and max, and the
     objective both ways and one way."""
-    from amico_tpu_torch.testing import freewater_tile_inputs, qp_agreement
+    from functools import partial
+    from amico_tpu_torch.testing import (freewater_maps, freewater_tile_inputs,
+                                         qp_agreement)
     if case == 'dense':
         (G, b), lam2, kw, n_perp = qp_problems(64, 21), 4.0, \
             DENSE_AS_SOLVER_KW, None
@@ -177,7 +181,8 @@ def test_nneg_qp_kernel_matches_twin(freewater, case):
     torch.cuda.synchronize()
     assert x_k.shape == b.shape and bool(torch.isfinite(x_k).all())
     assert bool((x_k >= 0).all())
-    a = qp_agreement(G, b, 0.0, lam2, x_k, x_t, n_perp=n_perp)
+    a = qp_agreement(G, b, 0.0, lam2, x_k, x_t, maps=None if n_perp is None
+                     else partial(freewater_maps, n_perp=n_perp))
     key = 'x' if n_perp is None else 'map'
     assert a[f'{key}_median'] < bounds[0], a
     assert a[f'{key}_p95'] < bounds[1], a
@@ -296,3 +301,148 @@ def test_freewater_fit_on_cuda_launches_the_kernel(freewater):
     assert ((est >= 0) & (est <= 1)).all()
     assert res['y_corrected'].shape == y.shape
     assert (res['y_corrected'] >= 0).all()
+
+
+# --------------------------------------------------- T1: build-cache probe
+@pytest.mark.parametrize('shape', [(8, 128), (1,), (1_000_003,), (3, 5, 7)])
+def test_loc_probe_matches_twin_bit_for_bit(cuda, shape):
+    from amico_tpu_torch.ops.loc_probe import loc_probe, loc_probe_torch
+    x = torch.randn(shape, device='cuda') * 1e3
+    before = loc_probe.launches
+    o = loc_probe(x)
+    torch.cuda.synchronize()
+    assert torch.equal(o, loc_probe_torch(x))
+    assert loc_probe.launches == before + 1
+
+
+def test_loc_probe_launch_counter_and_rejects(cuda):
+    from amico_tpu_torch.ops.loc_probe import loc_probe, loc_probe_torch
+    before = loc_probe.launches
+    assert loc_probe(torch.empty(0, device='cuda')).shape == (0,)  # no launch
+    loc_probe(torch.ones(4))                          # the CPU route
+    loc_probe_torch(torch.ones(4, device='cuda'))     # the twin
+    with pytest.raises(TypeError, match='float32'):
+        loc_probe(torch.ones(4, device='cuda', dtype=torch.float64))
+    with pytest.raises(ValueError, match='contiguous'):
+        loc_probe(torch.ones(4, 6, device='cuda').t())
+    assert loc_probe.launches == before
+
+
+def test_loc_experiment_is_call_site_stable(cuda):
+    from amico_tpu_torch.tools import loc_experiment
+    rows = loc_experiment.probe()
+    assert [r['desc'] for r in rows] == ['in-process',
+                                         'other process, other cwd']
+    assert all(r['stable'] for r in rows) and rows[1]['reused']
+    assert all(loc_experiment.line(r).split()[-1 if not r['note'] else -3]
+               == 'STABLE' for r in rows)
+
+
+# ------------------------------------- the stagewise solver, on the card
+def stagewise_problems(T=16, M=128, m=40, n=21, seed=0):
+    """Non-negative mixtures, each tile with its own dictionary: G (T, 1,
+    n, n), b (T, M, n), float32 on the card."""
+    rng = np.random.RandomState(seed)
+    A = np.abs(rng.randn(T, m, n))
+    X = rng.rand(T, M, n) * (rng.rand(T, M, n) < 0.4)
+    Y = np.einsum('tmn,tbn->tbm', A, X) + 0.01 * rng.randn(T, M, m)
+    G = np.einsum('tmi,tmj->tij', A, A)[:, None]
+    b = np.einsum('tmi,tbm->tbi', A, Y)
+    return (torch.from_numpy(G.astype(np.float32)).cuda(),
+            torch.from_numpy(b.astype(np.float32)).cuda())
+
+
+STAGEWISE_CASES = {
+    'default': (1e-3, DEFAULT_AS_SOLVER_KW),
+    'dense': (4.0, DENSE_AS_SOLVER_KW),
+    'flat-early-exit': (1e-3, dict(fista_iters=40, cd_sweeps=4,
+                                   refine_rounds=12, cg_iters=12)),
+}
+
+
+@pytest.mark.parametrize('case', list(STAGEWISE_CASES))
+def test_nneg_qp_batch_on_cuda_matches_cpu(cuda, case):
+    """The same float32 solve on the card and on the CPU: the objective
+    within 1e-5 relative and x within 1e-3 (another summation order)."""
+    from amico_tpu_torch.ops.solvers import nneg_qp_batch
+    from amico_tpu_torch.testing import qp_agreement
+    lam2, kw = STAGEWISE_CASES[case]
+    G, b = stagewise_problems()
+    x_g = nneg_qp_batch(G, b, 0.0, lam2, **kw)
+    x_c = nneg_qp_batch(G.cpu(), b.cpu(), 0.0, lam2, **kw)
+    assert x_g.device.type == 'cuda' and bool((x_g >= 0).all())
+    a = qp_agreement(G[:, 0].cpu(), b.cpu(), 0.0, lam2, x_g.cpu(), x_c)
+    assert a['obj_gap_max'] < 1e-5, a
+    assert a['x_max'] < 1e-3, a
+
+
+@pytest.mark.parametrize('case', list(STAGEWISE_CASES))
+def test_nneg_qp_batch_exit_read_interval_on_cuda(cuda, monkeypatch, case):
+    """On the card the exit flags are read every few iterations; reading
+    them every iteration gives the same x bit for bit."""
+    from amico_tpu_torch.ops import solvers
+    lam2, kw = STAGEWISE_CASES[case]
+    G, b = stagewise_problems(seed=1)
+    x_sparse = solvers.nneg_qp_batch(G, b, 0.0, lam2, **kw)
+    monkeypatch.setattr(solvers, '_exit_check', lambda x, i: True)
+    x_every = solvers.nneg_qp_batch(G, b, 0.0, lam2, **kw)
+    assert torch.equal(x_sparse, x_every)
+
+
+# ------------------------------- CylinderZeppelinBall: K2 vs stagewise
+@pytest.fixture(scope='module')
+def czb(cuda, tmp_path_factory):
+    d = tmp_path_factory.mktemp('cuda_czb')
+    os.environ['AMICO_TPU_HOME'] = str(d / 'home')
+    from amico_tpu_torch.testing import czb_scheme, demo_czb
+    return demo_czb(czb_scheme(), str(d / 'k'))
+
+
+def test_k2_matches_stagewise_on_czb_tiles(czb):
+    """chip_smoke.py's CZB comparison at 64 tiles, at its bounds: v and a
+    by median, p95 and max, and the objective both ways and one way."""
+    from amico_tpu_torch.models.cylinder_zeppelin_ball import czb_estimates
+    from amico_tpu_torch.ops.solvers import nneg_qp_batch
+    from amico_tpu_torch.testing import czb_tile_inputs, qp_agreement
+    model, kernels, htable = czb
+    G, b, L = czb_tile_inputs(model, kernels, htable, 'cuda', 64, seed=3)
+    x_k = nneg_qp_tiles(G, b, None, 0.0, 4.0, **DENSE_AS_SOLVER_KW)
+    x_s = nneg_qp_batch(G[:, None], b, 0.0, 4.0, L=L[:, None],
+                        **DENSE_AS_SOLVER_KW)
+    torch.cuda.synchronize()
+    Rs = torch.as_tensor(model.Rs, dtype=torch.float32, device='cuda')
+    a = qp_agreement(G, b, 0.0, 4.0, x_k, x_s,
+                     maps=lambda x: czb_estimates(x, Rs, 4)[..., :2])
+    for i, bounds in enumerate(((1e-5, 1e-4, 1e-3), (1e-4, 1e-3, 1e-2))):
+        got = (a['map_medians'][i], a['map_p95s'][i], a['map_maxs'][i])
+        assert all(g < bd for g, bd in zip(got, bounds)), a
+    assert a['obj_gap_p99'] < 1e-5 and a['obj_share_worse'] < 1e-3, a
+
+
+def test_czb_fit_on_cuda_both_backends(czb):
+    """'auto' runs the stagewise solver (no kernel launch), 'pallas' K2;
+    their maps agree."""
+    from amico_tpu_torch.testing import czb_voxels
+    model, kernels, htable = czb
+    y, DIRs, _, _ = czb_voxels(2000, kernels, htable, seed=9)
+
+    class Ctx:
+        def __init__(s):
+            s.y, s.DIRs, s.htable, s.KERNELS = y, DIRs, htable, kernels
+
+        def get_config(s, k):
+            return {'device': 'cuda'}.get(k)
+
+    est = {}
+    for backend in ('auto', 'pallas'):
+        model.set_solver(backend=backend)
+        before = nneg_qp_tiles.launches
+        est[backend] = model.fit(Ctx())['estimates']
+        launched = nneg_qp_tiles.launches - before
+        assert (launched > 0) == (backend == 'pallas')
+        assert est[backend].shape == (2000, 3)
+        assert np.isfinite(est[backend]).all()
+    model.set_solver()
+    d = np.abs(est['auto'] - est['pallas'])
+    assert np.median(d[:, 0]) < 1e-5 and d[:, 0].max() < 1e-3
+    assert np.median(d[:, 1]) < 1e-4 and d[:, 1].max() < 1e-2

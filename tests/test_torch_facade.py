@@ -75,6 +75,9 @@ def test_facade_runs_without_jax(study, tmp_path):
         f"sys.path.insert(0, {REPO!r})\n"
         "from tests.test_torch_facade import run_port_facade\n"
         f"maps, keys = run_port_facade({study!r}, {str(tmp_path / 'home')!r})\n"
+        "import amico_tpu_torch.models.cylinder_zeppelin_ball\n"
+        "import amico_tpu_torch.ops.loc_probe, amico_tpu_torch.ops.solvers\n"
+        "import amico_tpu_torch.testing, amico_tpu_torch.tools.loc_experiment\n"
         "assert not any(m == 'jax' or m.startswith('jax.')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         f"pickle.dump((maps, keys), open({str(tmp_path / 'out.pkl')!r}, 'wb'))\n")
@@ -99,11 +102,10 @@ def test_package_sources_import_no_jax():
 def test_model_zoo(tmp_path):
     import amico_tpu_torch
     ev = amico_tpu_torch.Evaluation(str(tmp_path), 'subj', device='cpu')
-    for name in ('NODDI', 'FreeWater'):
+    for name in ('NODDI', 'FreeWater', 'CylinderZeppelinBall'):
         ev.set_model(name)
         assert ev.model.id == name
-    for name in ('CylinderZeppelinBall', 'SANDI',
-                 'StickZeppelinBall', 'VolumeFractions'):
+    for name in ('SANDI', 'StickZeppelinBall', 'VolumeFractions'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ev.set_model(name)
     with pytest.raises(amico_tpu_torch.AmicoError):
