@@ -1,13 +1,14 @@
 """amico_tpu_torch — the AMICO-style microstructure fit on PyTorch and CUDA.
 
 The port of :mod:`amico_tpu` (JAX) to one NVIDIA Hopper card.  It imports
-``torch`` and never ``jax``; its host layers (NIfTI and scheme I/O, LUT,
-synthesis, native preprocessing, logging) are the jax-free modules of
-``amico_tpu``.  Public API: ``Evaluation``, ``setup``, ``set_verbose``,
-``AmicoError``, ``Scheme`` and ``fsl2scheme``.
+``torch`` and never ``jax``, and nothing of ``amico_tpu``: its host layers
+(NIfTI and scheme I/O, LUT, synthesis, native preprocessing, logging) are
+its own copies of the JAX package's jax-free modules.  Public API:
+``Evaluation``, ``setup``, ``set_verbose``, ``AmicoError``, ``Scheme`` and
+``fsl2scheme``.
 """
-from amico_tpu.io.scheme import Scheme, fsl2scheme
-from amico_tpu.utils.logging import AmicoError, set_verbose
+from .io.scheme import Scheme, fsl2scheme
+from .utils.logging import AmicoError, set_verbose
 
 __version__ = '0.1.0'
 

@@ -8,7 +8,8 @@ Same public surface, call order and config keys as the JAX package:
     ev.generate_kernels(); ev.load_kernels(); ev.fit(); ev.save_results()
 
 Host stages (NIfTI I/O, native preprocessing, LUT generation and
-resampling, scatter, map writing) are the JAX package's jax-free modules.
+resampling, scatter, map writing) are the port's copies of the JAX
+package's jax-free modules.
 The fit uploads the padded float32 signal once to the ``device`` config's
 device; the OLS DTI direction fit and the model's tile driver share that
 upload.  Single host only: the dist/mesh branches, Rician debias and the
@@ -25,12 +26,12 @@ from os.path import exists, isfile, join as pjoin
 import numpy as np
 import torch
 
-from amico_tpu import lut as _lut
-from amico_tpu.io import nifti
-from amico_tpu.io.scheme import Scheme
-from amico_tpu.utils.logging import ERROR, LOG, NOTE, PRINT, WARNING, get_verbose
-from amico_tpu.utils.progress import ProgressBar
-from amico_tpu.utils.timers import StageTimers
+from . import lut as _lut
+from .io import nifti
+from .io.scheme import Scheme
+from .utils.logging import ERROR, LOG, NOTE, PRINT, WARNING, get_verbose
+from .utils.progress import ProgressBar
+from .utils.timers import StageTimers
 
 from . import models as _models
 from . import pipeline as _pl
@@ -218,7 +219,7 @@ class Evaluation:
     def _preprocess(self, img, b0_thr, b0_min_signal, replace_bad_voxels):
         """rescale/finite-guard -> b0-normalize -> merge-b0 -> directional
         average.  The rescale, finite guard and b0 normalization run as
-        one threaded native pass (``amico_tpu.ops.native.preprocess_dwi``)
+        one threaded native pass (``ops.native.preprocess_dwi``)
         when the native library is available; the staged NumPy path is the
         same computation."""
         LOG('\n-> Preprocessing:')
@@ -233,7 +234,7 @@ class Evaluation:
         if normalize and self.scheme.b0_count == 0:
             ERROR('No b0 volume to normalize signal with')
 
-        from amico_tpu.ops import native
+        from .ops import native
         fused = native.preprocess_dwi(
             np.asarray(img), self.scheme.b0_idx, hdr.scl_slope,
             hdr.scl_inter, rescale, b0_min_signal, replace_bad_voxels,
@@ -445,7 +446,7 @@ class Evaluation:
         with self.timers.stage('stage_voxels'):
             # fused native extraction (gather + clip + zero pad row); the
             # padded buffer is the device staging layout
-            from amico_tpu.ops import native as _native
+            from .ops import native as _native
             padded = _native.masked_gather_padded(self.niiDWI_img, mask)
             if padded is None:
                 self.y = _pl.masked_voxels(self.niiDWI_img, mask)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from amico_tpu.utils.logging import AmicoError
+from .utils.logging import AmicoError
 
 DEFAULT_DEVICE = 'cuda'
 

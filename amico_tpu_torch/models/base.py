@@ -16,8 +16,8 @@ from os.path import join as pjoin
 import numpy as np
 import torch
 
-from amico_tpu import lut as _lut
-from amico_tpu.utils.logging import ERROR
+from .. import lut as _lut
+from ..utils.logging import ERROR
 from .engine import build_tile_plan, iter_tile_chunks, untile_voxels
 
 DEFAULT_BACKEND = 'auto'

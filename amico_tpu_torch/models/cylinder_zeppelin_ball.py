@@ -25,10 +25,10 @@ import math
 import numpy as np
 import torch
 
-from amico_tpu import lut as _lut
-from amico_tpu.synthesis import Ball, CylinderGPD, Zeppelin
-from amico_tpu.utils.logging import ERROR, get_verbose
-from amico_tpu.utils.progress import ProgressBar
+from .. import lut as _lut
+from ..synthesis import Ball, CylinderGPD, Zeppelin
+from ..utils.logging import ERROR, get_verbose
+from ..utils.progress import ProgressBar
 from ..device import resolve_device
 from ..ops.solvers import gram, power_iteration_L
 from ._fitops import error_maps, project, solve_tiles

@@ -18,10 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from amico_tpu import lut as _lut
-from amico_tpu.synthesis import Ball, Zeppelin
-from amico_tpu.utils.logging import PRINT, get_verbose
-from amico_tpu.utils.progress import ProgressBar
+from .. import lut as _lut
+from ..synthesis import Ball, Zeppelin
+from ..utils.logging import PRINT, get_verbose
+from ..utils.progress import ProgressBar
 from ..device import resolve_device
 from ..ops.solvers import gram, power_iteration_L
 from ._fitops import error_maps, predict, project, solve_tiles

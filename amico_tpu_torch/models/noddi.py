@@ -20,11 +20,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from amico_tpu import lut as _lut
-from amico_tpu.synthesis import (NODDIExtraCellular, NODDIIntraCellular,
-                                 NODDIIsotropic)
-from amico_tpu.utils.logging import get_verbose
-from amico_tpu.utils.progress import ProgressBar
+from .. import lut as _lut
+from ..synthesis import (NODDIExtraCellular, NODDIIntraCellular,
+                         NODDIIsotropic)
+from ..utils.logging import get_verbose
+from ..utils.progress import ProgressBar
 from ..device import resolve_device
 from ..ops.cuda_qp import noddi_fused_tiles, noddi_schedules
 from ..ops.solvers import gram, noddi_stage2_tiebreak, power_iteration_L
@@ -343,7 +343,8 @@ class NODDI(BaseModel):
             else:
                 out = noddi_fused_tiles(
                     c['G1_all'][dirs], c['G2_all'][dirs], b1,
-                    Y.index_select(-1, rows), c['A2T_all'][dirs],
+                    Y.index_select(-1, rows),
+                    c['A2_all'][dirs].transpose(1, 2),   # no copy for K1
                     c['iso_dwi'], c['icvf'], c['kappa'], lam1=lam1,
                     lam2=lam2, stage_iters=stage_iters, want_x=want_x,
                     is_exvivo=is_exvivo)

@@ -8,6 +8,12 @@ started together; ``nvcc -shared`` then links them into
 The hash covers the sources' and headers' bytes and the flags, so an
 unchanged checkout reuses its build and any edit builds anew.  The build
 runs at first use; the library is loaded with ctypes, once per process.
+
+:class:`Launcher` is the one launch path of the kernels' wrappers: it binds
+a C entry point and its ``argtypes`` once per process and, per launch,
+takes the current stream's raw handle and enters a device guard only when
+the tensors' card is not the current one (each piece timed on the H100 in
+PERF.md).
 """
 from __future__ import annotations
 
@@ -61,22 +67,17 @@ def library_path() -> str:
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the sources unless this hash is already built; return the
-    library's path.  Raises with nvcc's output when a step fails."""
-    global last_build_seconds
-    out = library_path()
-    if os.path.isfile(out):
-        return out
+def compile_library(sources: list[str], out: str, flags: list[str]) -> str:
+    """Compile ``sources`` with nvcc and ``flags`` (one process per source,
+    all started together), link them into the shared library ``out`` and
+    return nvcc's output.  Raises with that output when a step fails."""
     work = f'{out}.{os.getpid()}.d'
     os.makedirs(work, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.time()
     jobs = []
-    for src in _sources():
+    for src in sources:
         obj = os.path.join(work, os.path.basename(src) + '.o')
-        cmd = [nvcc] + NVCC_FLAGS + (['-Xptxas', '-v'] if verbose else []) \
-            + ['-c', src, '-o', obj]
+        cmd = [nvcc] + flags + ['-c', src, '-o', obj]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -87,16 +88,29 @@ def build(verbose: bool = False) -> str:
             raise RuntimeError(f'nvcc failed ({proc.returncode}): '
                                f'{" ".join(cmd)}\n{text}')
         logs.append(text)
-    tmp = os.path.join(work, LIB_NAME)
+    tmp = os.path.join(work, os.path.basename(out))
     cmd = [nvcc, '-shared', '-o', tmp] + [obj for _, obj, _ in jobs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed ({proc.returncode}): '
                            f'{" ".join(cmd)}\n{proc.stderr}{proc.stdout}')
-    if verbose:
-        print(''.join(logs), flush=True)
     os.replace(tmp, out)        # atomic: a concurrent loader never sees half
     shutil.rmtree(work, ignore_errors=True)
+    return ''.join(logs)
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the sources unless this hash is already built; return the
+    library's path.  Raises with nvcc's output when a step fails."""
+    global last_build_seconds
+    out = library_path()
+    if os.path.isfile(out):
+        return out
+    t0 = time.time()
+    log = compile_library(_sources(), out, NVCC_FLAGS
+                          + (['-Xptxas', '-v'] if verbose else []))
+    if verbose:
+        print(log, flush=True)
     last_build_seconds = time.time() - t0
     return out
 
@@ -108,3 +122,58 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(build(verbose))
         return _lib
+
+
+_bound = {}
+
+
+def entry(name: str, argtypes: list, restype=ctypes.c_int):
+    """The library's C function ``name``, its ``argtypes`` and ``restype``
+    set once per process."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(load_library(), name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _bound[name] = fn
+    return fn
+
+
+def error_string(err: int) -> str:
+    return entry('cuda_error_string', [ctypes.c_int],
+                 ctypes.c_char_p)(err).decode()
+
+
+def _raw_stream(index: int) -> int:
+    import torch
+    get = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    if get is not None:
+        return get(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+class Launcher:
+    """A kernel's C launch function: ``name(*args, stream)`` returning a
+    ``cudaError_t``.  ``argtypes`` are those of ``args``; the stream is
+    appended."""
+
+    def __init__(self, name: str, argtypes: list):
+        self.name = name
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+
+    def __call__(self, device, *args) -> None:
+        """Launch on the current stream of ``device`` (a CUDA
+        ``torch.device`` with its index); raises ``RuntimeError`` when the
+        C side refuses the launch."""
+        import torch
+        fn = entry(self.name, self.argtypes)
+        index = device.index
+        if index == torch.cuda.current_device():
+            err = fn(*args, _raw_stream(index))
+        else:
+            # the C side sets function attributes and launches on the
+            # current device, which must be the tensors'
+            with torch.cuda.device(index):
+                err = fn(*args, _raw_stream(index))
+        if err != 0:
+            raise RuntimeError(f'kernel launch failed ({self.name}): '
+                               f'{error_string(err)}')

@@ -39,11 +39,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .cuda_build import Launcher, entry
+
 TOL = 3e-6          # prune / add gate, relative to max|b_eff| per voxel
 BIG = 3.0e38
 MAX_ROUNDS = 32     # csrc/noddi_fused.cu MAXR
 MAX_ATOMS = 160     # csrc/noddi_fused.cu 32 * KMAX
 SMEM_LD = 160       # csrc/noddi_fused.cu LD: row stride of a Gram in shared memory
+SUP_WORDS = 5       # csrc/noddi_fused.cu KMAX: stage-2 support words a voxel
 
 
 @dataclass(frozen=True)
@@ -266,7 +269,8 @@ def _fused_raw_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa, lam1,
     if is_exvivo:
         Y2 = Y2 - x1[..., na - 2:na - 1]
     Y2 = torch.clamp(Y2, min=0.0)
-    b2 = torch.matmul(Y2, A2T.transpose(-1, -2))          # (C, M, n_wm)
+    # the same product whatever A2T's strides (the model hands a view)
+    b2 = torch.matmul(Y2, A2T.contiguous().transpose(-1, -2))  # (C, M, n_wm)
     x2 = _as_solve(G2, b2, lam1, lam2, torch.ones_like(b2), scheds[1])
     mask3 = torch.cat([(x2 > 0.0).float(),
                        torch.ones((C, M, na - n_wm), dtype=b1.dtype,
@@ -371,21 +375,15 @@ def _sched_array(scheds) -> np.ndarray:
     return out
 
 
-def _library():
-    from .cuda_build import load_library
-    lib = load_library()
-    if lib.noddi_fused_launch.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.noddi_fused_launch.argtypes = [vp] * 10 + [ci] * 6 \
-            + [cf, cf, vp, vp]
-        lib.noddi_fused_launch.restype = ci
-        lib.nneg_qp_launch.argtypes = [vp] * 6 + [ci] * 3 + [cf, cf, vp, vp]
-        lib.nneg_qp_launch.restype = ci
-        lib.cuda_max_smem.argtypes = [ci]
-        lib.cuda_max_smem.restype = ci
-        lib.cuda_error_string.argtypes = [ci]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_NODDI_LAUNCH = Launcher('noddi_fused_launch',
+                         [_vp] * 11 + [_ci] * 6 + [_cf, _cf, _vp])
+_QP_LAUNCH = Launcher('nneg_qp_launch',
+                      [_vp] * 6 + [_ci] * 3 + [_cf, _cf, _vp])
+
+
+def _max_smem(device) -> int:
+    return entry('cuda_max_smem', [_ci])(device.index)
 
 
 def noddi_fused_tiles(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
@@ -393,8 +391,10 @@ def noddi_fused_tiles(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
                       is_exvivo=False, tiebreak_cg=0, want_tie=False):
     """Fused 3-stage NODDI solve: the CUDA kernel for CUDA tensors, the
     twin for CPU tensors.  Same arguments and returns as
-    :func:`noddi_fused_tiles_torch`.  ``noddi_fused_tiles.launches`` counts
-    kernel launches."""
+    :func:`noddi_fused_tiles_torch`; ``A2T`` may have any strides (the
+    kernel reads the dictionary as ``A2T.transpose(-1, -2)``, contiguous, so
+    the transposed view of an (C, ndwi, n_wm) tensor costs no copy).
+    ``noddi_fused_tiles.launches`` counts kernel launches."""
     if b1.device.type == 'cpu':
         return noddi_fused_tiles_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf,
                                        kappa, lam1, lam2, stage_iters,
@@ -412,38 +412,31 @@ def noddi_fused_tiles(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
         raise NotImplementedError(f'the kernel takes at most {MAX_ATOMS} '
                                   f'atoms, got {na}')
     for name, t in (('G1', G1), ('G2', G2), ('b1', b1), ('Y_dwi', Y_dwi),
-                    ('A2T', A2T), ('iso_dwi', iso_dwi), ('icvf', icvf),
-                    ('kappa', kappa)):
+                    ('iso_dwi', iso_dwi), ('icvf', icvf), ('kappa', kappa)):
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
-    lib = _library()
-    dev = b1.device.index if b1.device.index is not None \
-        else torch.cuda.current_device()
-    smem = (na + n_wm) * SMEM_LD * 4
-    smem_max = lib.cuda_max_smem(dev)
+    smem = na * SMEM_LD * 4
+    smem_max = _max_smem(b1.device)
     if smem > smem_max:
         raise NotImplementedError(
-            f'the kernel needs {smem} bytes of shared memory for Grams of '
-            f'{na} and {n_wm} atoms; the card allows {smem_max}')
+            f'the kernel needs {smem} bytes of shared memory for a Gram of '
+            f'{na} atoms; the card allows {smem_max}')
     est = torch.empty((C, M, 4), dtype=torch.float32, device=b1.device)
     x = torch.empty((C, M, na), dtype=torch.float32, device=b1.device) \
         if want_x else None
     if C * M > 0:
-        sched = _sched_array(scheds)
-        # the C side sets the smem attribute and launches on the current
-        # device, which must be the tensors'
-        with torch.cuda.device(b1.device):
-            err = lib.noddi_fused_launch(
-                G1.data_ptr(), G2.data_ptr(), b1.data_ptr(),
-                Y_dwi.data_ptr(), A2T.data_ptr(), iso_dwi.data_ptr(),
-                icvf.data_ptr(), kappa.data_ptr(), est.data_ptr(),
-                x.data_ptr() if want_x else None,
-                C, M, na, n_wm, ndwi, int(bool(is_exvivo)),
-                float(lam1), float(lam2), sched.ctypes.data,
-                torch.cuda.current_stream(b1.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError('noddi_fused kernel launch failed: '
-                               + lib.cuda_error_string(err).decode())
+        sched = _sched_array(scheds)        # held across the call
+        A2 = A2T.transpose(-1, -2).contiguous()
+        # stage 1's x, then stage 2's support words
+        scratch = torch.empty(C * M * (na + SUP_WORDS), dtype=torch.float32,
+                              device=b1.device)
+        _NODDI_LAUNCH(
+            b1.device, G1.data_ptr(), G2.data_ptr(), b1.data_ptr(),
+            Y_dwi.data_ptr(), A2.data_ptr(), iso_dwi.data_ptr(),
+            icvf.data_ptr(), kappa.data_ptr(), est.data_ptr(),
+            x.data_ptr() if want_x else None, scratch.data_ptr(), C, M, na,
+            n_wm, ndwi, int(bool(is_exvivo)), float(lam1), float(lam2),
+            sched.ctypes.data)
         noddi_fused_tiles.launches += 1
     out = _finish(est, is_exvivo)
     return (out, x) if want_x else out
@@ -593,11 +586,8 @@ def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
     for name, t in named[2:4]:
         if t is not None and not bool(((t == 0) | (t == 1)).all()):
             raise ValueError(f'the kernel takes a 0/1 {name}')
-    lib = _library()
-    dev = b.device.index if b.device.index is not None \
-        else torch.cuda.current_device()
     smem = _qp_smem_bytes(n, M)
-    smem_max = lib.cuda_max_smem(dev)
+    smem_max = _max_smem(b.device)
     if smem > smem_max:
         raise NotImplementedError(
             f'the kernel needs {smem} bytes of shared memory for {n} atoms '
@@ -605,15 +595,9 @@ def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
     x = torch.empty_like(b)
     if C * M > 0:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        with torch.cuda.device(b.device):
-            err = lib.nneg_qp_launch(
-                G.data_ptr(), b.data_ptr(), ptr(mask), ptr(m0), ptr(x0),
-                x.data_ptr(), C, M, n, float(lam1), float(lam2),
-                sched.ctypes.data,
-                torch.cuda.current_stream(b.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError('nneg_qp kernel launch failed: '
-                               + lib.cuda_error_string(err).decode())
+        _QP_LAUNCH(b.device, G.data_ptr(), b.data_ptr(), ptr(mask), ptr(m0),
+                   ptr(x0), x.data_ptr(), C, M, n, float(lam1), float(lam2),
+                   sched.ctypes.data)
         nneg_qp_tiles.launches += 1
     return x
 

@@ -11,22 +11,16 @@ import ctypes
 
 import torch
 
+from .cuda_build import Launcher
+
 
 def loc_probe_torch(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of T1, on any device."""
     return x * 2.0 + 1.0
 
 
-def _library():
-    from .cuda_build import load_library
-    lib = load_library()
-    if lib.loc_probe_launch.argtypes is None:
-        lib.loc_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                         ctypes.c_longlong, ctypes.c_void_p]
-        lib.loc_probe_launch.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_LAUNCH = Launcher('loc_probe_launch',
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong])
 
 
 def loc_probe(x: torch.Tensor) -> torch.Tensor:
@@ -43,14 +37,7 @@ def loc_probe(x: torch.Tensor) -> torch.Tensor:
         raise ValueError('x must be contiguous')
     o = torch.empty_like(x)
     if x.numel() > 0:
-        lib = _library()
-        with torch.cuda.device(x.device):
-            err = lib.loc_probe_launch(
-                x.data_ptr(), o.data_ptr(), x.numel(),
-                torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError('loc_probe kernel launch failed: '
-                               + lib.cuda_error_string(err).decode())
+        _LAUNCH(x.device, x.data_ptr(), o.data_ptr(), x.numel())
         loc_probe.launches += 1
     return o
 

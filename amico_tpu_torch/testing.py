@@ -8,9 +8,9 @@ import tempfile
 
 import numpy as np
 
-from amico_tpu import lut as _lut
-from amico_tpu.io.scheme import Scheme
-from amico_tpu.ops.sphere import fibonacci_hemisphere, resolve_source
+from . import lut as _lut
+from .io.scheme import Scheme
+from .ops.sphere import fibonacci_hemisphere, resolve_source
 
 LMAX = 12
 NDIRS = 500
@@ -57,7 +57,7 @@ def czb_scheme() -> Scheme:
     """The JAX bench's STEJSKALTANNER protocol for CylinderZeppelinBall:
     1 b0 + 30 directions at b = 3000 + 30 at b = 6000 s/mm^2, Delta = 35
     ms, delta = 15 ms (61 samples, 7 columns)."""
-    from amico_tpu.io.scheme import GAMMA
+    from .io.scheme import GAMMA
     Delta, delta = 0.035, 0.015
     rows = [np.array([[0, 0, 0, 0, Delta, delta, Delta + delta]])]
     for b in (3000.0, 6000.0):
@@ -200,6 +200,88 @@ def fused_agreement(args, kernel_out, twin_out) -> dict:
                                int(torch.count_nonzero(o_t > 0)))}
 
 
+def solve_work(twin, *args, **kwargs):
+    """Run a tile-solve twin (``noddi_fused_tiles_torch`` or
+    ``nneg_qp_tiles_torch``) on its inputs and count the work that its
+    kernel needs on them: the least operations of the roofline bound.
+
+    Every matvec of the twin (``_as_solve``'s ``G v``) is counted at 2 x
+    (rows the solve needs) x (nonzeros of v) per voxel: a CG step needs
+    only the working set's rows, an add step the gradient outside it, a
+    FISTA step every allowed row.  A CG step adds ~12 operations per
+    working-set row (the dots and the axpys).  A ``converge`` round counts
+    only on the tiles still running, as the kernel runs it; the Lipschitz
+    power iterations and stage 2's ``A2 Y2`` count in full.  Also counted,
+    for the kernels' shared-memory traffic: the 32-lane Gram reads a matvec
+    makes, ceil(n/32) per nonzero for a full matvec and one per
+    working-set slot (a 32-row band holding a working-set row) for a CG
+    one.  Returns (the twin's output, a dict of float totals)."""
+    import sys
+
+    import torch
+    from .ops import cuda_qp
+    solve_code = cuda_qp._as_solve.__code__
+    mv_code = next(c for c in solve_code.co_consts
+                   if getattr(c, 'co_name', None) == 'mv')
+    keys = ('flops', 'matvecs', 'nonzeros', 'rows', 'reads_full',
+            'reads_slots')
+    acc = {}
+
+    def add(key, t):
+        t = t.double().sum()
+        acc[key] = acc[key] + t if key in acc else t
+
+    matmul = torch.matmul
+
+    def counted(a, b, *rest, **kw):
+        out = matmul(a, b, *rest, **kw)
+        code = sys._getframe(1).f_code
+        if code is mv_code:
+            _count_matvec(a, sys._getframe(2))
+        elif code.co_name in ('_lipschitz', '_fused_raw_torch'):
+            add('flops', torch.tensor(2.0 * out.numel() * a.shape[-1]))
+        return out
+
+    def _count_matvec(v, caller):
+        loc = caller.f_locals
+        name = caller.f_code.co_name
+        rows = {'cg': lambda: loc['m'],
+                'as_round': lambda: (1.0 - loc['m']) * loc['cmask'],
+                '_fista': lambda: loc['cmask']}[name]()
+        run = torch.ones(v.shape[:-1], dtype=v.dtype, device=v.device)
+        f, chain = caller, []
+        while f.f_code is not solve_code:
+            chain.append(f.f_code.co_name)
+            f = f.f_back
+        if 'as_round' in chain and 'done' in f.f_locals:
+            run = run * (~f.f_locals['done']).to(v.dtype).view(
+                (-1,) + (1,) * (v.dim() - 2))
+        nnz = (v != 0).sum(-1).to(v.dtype)
+        nrows = (rows > 0).sum(-1).to(v.dtype)
+        n = v.shape[-1]
+        K = -(-n // 32)
+        add('flops', 2.0 * nnz * nrows * run)
+        if name == 'cg':
+            add('flops', 12.0 * nrows * run)
+        add('matvecs', run)
+        add('nonzeros', nnz * run)
+        add('rows', nrows * run)
+        add('reads_full', K * nnz * run)
+        if name == 'cg':
+            pad = torch.nn.functional.pad(rows, (0, 32 * K - n))
+            slots = (pad.view(pad.shape[:-1] + (K, 32)) > 0).any(-1).sum(-1)
+            add('reads_slots', slots.to(v.dtype) * nnz * run)
+        else:
+            add('reads_slots', K * nnz * run)
+
+    torch.matmul = counted
+    try:
+        out = twin(*args, **kwargs)
+    finally:
+        torch.matmul = matmul
+    return out, {k: float(acc[k]) if k in acc else 0.0 for k in keys}
+
+
 def freewater_voxels(n: int, kernels: dict, htable: np.ndarray,
                      seed: int = 0):
     """Random FreeWater mixtures through the actual dictionary + noise:
@@ -279,10 +361,10 @@ def czb_tile_inputs(model, kernels, htable, device, n_tiles: int,
 
 def czb_oracle_maps(model, A: np.ndarray, y: np.ndarray) -> np.ndarray:
     """v, a, d of the exact non-negative elastic net
-    ``amico_tpu.ops.native.lasso(A, y, 0, 4)`` (LARS, the reference's
+    ``ops.native.lasso(A, y, 0, 4)`` (LARS, the reference's
     algorithm) on one voxel, as the JAX bench's CylinderZeppelinBall oracle
     computes them."""
-    from amico_tpu.ops import native
+    from .ops import native
     n_rs, n_perp = len(model.Rs), len(model.d_perps)
     x = native.lasso(np.asarray(A, np.float64), np.asarray(y, np.float64),
                      float(model.solver_params['lambda1']),
@@ -384,7 +466,7 @@ def write_demo_subject(subject_dir: str, scheme: Scheme, y: np.ndarray,
     ``DWI.nii`` (float32, 2 mm voxels) and ``scheme`` as ``DWI.scheme``:
     ``VERSION: BVECTOR`` with 4 columns, or for a STEJSKALTANNER scheme
     ``VERSION: 1`` with all 7."""
-    from amico_tpu.io import nifti
+    from .io import nifti
     os.makedirs(subject_dir, exist_ok=True)
     vol = (s0 * np.asarray(y)).astype(np.float32).reshape(
         tuple(dim) + (y.shape[1],))
@@ -401,12 +483,12 @@ def write_demo_subject(subject_dir: str, scheme: Scheme, y: np.ndarray,
 
 def noddi_oracle_voxel(kernels, dwi_idx, y_i, lut_i, lam1=0.5, lam2=1e-3):
     """Exact per-voxel NODDI 3-stage solve with the shared native solvers
-    (``amico_tpu.ops.native``: NNLS, LARS lasso): (1) NNLS on the full
+    (``ops.native``: NNLS, LARS lasso): (1) NNLS on the full
     dictionary for the CSF fraction; (2) non-negative lasso on the
     norm-scaled DWI subproblem with the iso prediction subtracted, clipped
     >= 0; (3) debias NNLS on the positive support with iso forced in.
     Returns the (NDI, ODI, FWF) vector, as ``amico_tpu.testing`` does."""
-    from amico_tpu.ops import native
+    from .ops import native
     n_wm = kernels['wm'].shape[0]
     A = np.column_stack([kernels['wm'][:, lut_i, :].T, kernels['iso']])
     x1, _ = native.nnls(A, y_i)
@@ -445,11 +527,11 @@ def freewater_oracle_audit(evaluation, n: int = 1000,
                            seed: int = 0) -> np.ndarray:
     """|fitted maps - oracle maps| (n, n_maps) for ``n`` voxels of a fitted
     FreeWater ``Evaluation``, sampled with ``seed``.  The oracle is the
-    exact non-negative elastic net ``amico_tpu.ops.native.lasso(A, y,
+    exact non-negative elastic net ``ops.native.lasso(A, y,
     lambda1, lambda2)`` (LARS) on each voxel's signal and the dictionary of
     its fitted LUT direction; its maps are FiberVolume, FW (and FW_blood,
     FW_csf for Mouse), as the fit computes them."""
-    from amico_tpu.ops import native
+    from .ops import native
     K = evaluation.KERNELS
     n_perp = K['D'].shape[0]
     lam1 = float(evaluation.model.solver_params['lambda1'])

@@ -32,8 +32,9 @@ Phases; any failure exits non-zero and prints no result line:
 7. build-cache probe (T1): ``amico_tpu_torch.tools.loc_experiment``'s
    candidates (the build key from two call sites and from a second process
    in another working directory, which must reuse the build), then T1
-   against its twin, bit for bit, on (8, 128) and on an odd size, both
-   timed;
+   against its twin, bit for bit, on (8, 128) and on an odd size, timed in
+   turns with its twin and the one PyTorch call that computes the same
+   function, ``torch.add(1, x, alpha=2)``;
 8. CylinderZeppelinBall main path: a 409,600-voxel ACTIVEAX subject on the
    JAX bench's STEJSKALTANNER protocol (1 b0 + 30 @ b=3000 + 30 @
    b=6000, VERSION: 1 scheme; 21 radii + 4 zeppelins + 1 ball) through
@@ -50,9 +51,14 @@ Phases; any failure exits non-zero and prints no result line:
    at phase 4's bounds.
 
 The kernels are built in phase 2; every launch count is read from the main
-path's run alone (counts set to 0 just before it).  The last two lines are
-the kernels' JSON record and {"ok": true, "device": {...}}.  Nothing of JAX
-is imported.
+path's run alone (counts set to 0 just before it).  Each kernel's bound is
+the larger of its bytes (inputs read once, outputs written once) over the
+card's memory rate and the operations that this run's inputs need
+(``testing.solve_work`` counts the data-dependent solves on the timed
+launch) over its float32 rate.  At the end the script checks that neither
+JAX nor ``amico_tpu`` was imported and that the host layers ran on the
+port's native library.  The last lines are the kernels' JSON record, the
+card's name and power limit, and {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -62,8 +68,6 @@ import tempfile
 import time
 
 import numpy as np
-
-sys.modules['jax'] = None       # the port must run where JAX is absent
 
 N_VOXELS = 409_600              # a full brain's masked voxels
 VOL_DIM = (80, 80, 64)          # 80 * 80 * 64 == N_VOXELS
@@ -155,6 +159,10 @@ CZB_DIRS_AGREE = 0.999
 # max 3.3e-2 and 6.1% off, on 2,048 voxels of this protocol (CPU); the
 # stage-2 vertex is degenerate below f32 resolution
 NODDI_XLA_MEDIAN, NODDI_XLA_P95, NODDI_XLA_SHARE_OFF = 5e-5, 5e-3, 0.1
+# the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM3
+# bytes/s and float32 FLOP/s outside the tensor cores (the kernels compute
+# in float32 on the CUDA cores)
+PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
 
 
 def log(*a):
@@ -178,6 +186,16 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def bound(nbytes, flops):
+    """(least ms, what sets it) for moving ``nbytes`` and doing ``flops``."""
+    t_b, t_f = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+    return (t_b, 'bytes') if t_b >= t_f else (t_f, 'operations')
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def phase_device():
@@ -208,7 +226,8 @@ def phase_kernel_vs_twin(scheme, kernels, htable):
                                              DEFAULT_VOXELS_PER_CHUNK)
     from amico_tpu_torch.ops.cuda_qp import (noddi_fused_tiles,
                                              noddi_fused_tiles_torch)
-    from amico_tpu_torch.testing import fused_agreement, noddi_tile_inputs
+    from amico_tpu_torch.testing import (fused_agreement, noddi_tile_inputs,
+                                         solve_work)
     step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
 
     def chunks(args):
@@ -253,9 +272,18 @@ def phase_kernel_vs_twin(scheme, kernels, htable):
             first = next(chunks(args))
             ms = cuda_ms(lambda: noddi_fused_tiles(*first), 5)
             plain_ms = cuda_ms(lambda: noddi_fused_tiles_torch(*first), 2)
-            times = (ms, plain_ms)
+            _, work = solve_work(noddi_fused_tiles_torch, *first)
+            C, M = first[2].shape[:2]
+            n_b = nbytes(*first) + C * M * 4 * 4      # inputs, est
+            b = bound(n_b, work['flops'])
+            times = (ms, plain_ms) + b
             log(f'kernel {ms:.3f} ms, twin {plain_ms:.3f} ms per launch of '
-                f'{step} tiles x 128 voxels (CUDA events)')
+                f'{step} tiles x 128 voxels (CUDA events); least work '
+                f'{n_b} bytes, {work["flops"]:.4g} '
+                f'FLOP ({work["matvecs"] / (C * M):.0f} matvecs a voxel, '
+                f'{work["nonzeros"] / work["matvecs"]:.3g} nonzeros and '
+                f'{work["rows"] / work["matvecs"]:.3g} rows each): bound '
+                f'{b[0]:.4f} ms ({b[1]}), {b[0] / ms:.2%} of it reached')
         del args, out_k, out_t
     return worst, times
 
@@ -336,7 +364,7 @@ def phase_qp_vs_twin(scheme, tmp):
     from functools import partial
     from amico_tpu_torch.testing import (demo_freewater, freewater_maps,
                                          freewater_tile_inputs, qp_agreement,
-                                         random_qp_problems)
+                                         random_qp_problems, solve_work)
     step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
 
     def run(fn, G, b, lam2, kw):
@@ -383,7 +411,16 @@ def phase_qp_vs_twin(scheme, tmp):
               f'tile QP kernel disagrees with its twin ({name})')
         worst = max(worst, a[key + '_max'])
         if name == 'Human':
-            times = (ms, plain_ms)
+            _, work = solve_work(nneg_qp_tiles_torch, *first, None, 0.0,
+                                 lam2, **kw)
+            n_b = 2 * nbytes(first[1]) + nbytes(first[0])
+            bd = bound(n_b, work['flops'])
+            times = (ms, plain_ms) + bd
+            per_voxel = work['matvecs'] * b.shape[-1] / first[1].numel()
+            log(f'tile QP (Human) least work {n_b} bytes, '
+                f'{work["flops"]:.4g} FLOP ({per_voxel:.1f} matvecs a '
+                f'voxel): bound {bd[0]:.4f} ms ({bd[1]}), '
+                f'{bd[0] / ms:.2%} of it reached')
         del G, b, x_k, x_t
     return worst, times
 
@@ -461,8 +498,9 @@ def phase_fw_main_path(study, lut_true, aniso):
 
 def phase_loc_probe():
     """T1's path, the build-cache probe, then T1 against its twin; returns
-    the launch count of the probe's run, the largest |kernel - twin| and
-    the kernel's and twin's ms per call at (8, 128)."""
+    the launch count of the probe's run, the largest |kernel - twin| and,
+    at (8, 128), the kernel's, twin's and torch.add's ms per call and the
+    bound."""
     import torch
     from amico_tpu_torch.ops.loc_probe import loc_probe, loc_probe_torch
     from amico_tpu_torch.tools import loc_experiment
@@ -486,10 +524,21 @@ def phase_loc_probe():
         torch.cuda.synchronize()
         check(torch.equal(o, t), f'T1 differs from its twin at {shape}')
         worst = max(worst, float((o - t).abs().max()))
-        times[shape] = (cuda_ms(lambda: loc_probe(x), 200),
-                        cuda_ms(lambda: loc_probe_torch(x), 200))
-        log(f'T1 vs twin {shape}: bit-equal; kernel {times[shape][0]:.4f} ms, '
-            f'twin {times[shape][1]:.4f} ms per call (CUDA events)')
+        fns = {'T1': lambda: loc_probe(x),
+               'library': lambda: torch.add(1, x, alpha=2),
+               'twin': lambda: loc_probe_torch(x)}
+        check(torch.equal(fns['library'](), t), 'torch.add differs')
+        runs = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:        # in turns
+            runs[k].append(cuda_ms(fns[k], 200))
+        ms = {k: float(np.median(v)) for k, v in runs.items()}
+        b = bound(8 * x.numel(), 2 * x.numel())
+        times[shape] = (ms['T1'], ms['twin'], ms['library']) + b
+        log(f'T1 vs twin {shape}: bit-equal; kernel {ms["T1"]:.4f} ms, '
+            f'torch.add(1, x, alpha=2) {ms["library"]:.4f} ms, twin '
+            f'{ms["twin"]:.4f} ms per call (CUDA events, in turns: '
+            f'{ {k: [round(t, 4) for t in v] for k, v in runs.items()} }); '
+            f'bound {b[0]:.3g} ms ({b[1]})')
     return launches, worst, times[(8, 128)]
 
 
@@ -737,8 +786,8 @@ def main():
         _, kernels, htable = demo_noddi(scheme, small=False,
                                         kernels_dir=os.path.join(tmp, 'k'))
         log(f'full-grid kernels: {time.time() - t0:.1f} s')
-        max_err, (ms, plain_ms) = phase_kernel_vs_twin(scheme, kernels,
-                                                       htable)
+        max_err, (ms, plain_ms, bound_ms, bound_by) = phase_kernel_vs_twin(
+            scheme, kernels, htable)
         study = os.path.join(tmp, 'study')
         t0 = time.time()
         y, _, lut_true = demo_voxels(N_VOXELS, kernels, htable, seed=7)
@@ -748,7 +797,8 @@ def main():
         launches, noddi_maps = phase_main_path(study, lut_true)
         noddi_study = study
         del lut_true
-        qp_err, (qp_ms, qp_plain_ms) = phase_qp_vs_twin(scheme, tmp)
+        qp_err, (qp_ms, qp_plain_ms, qp_bound_ms, qp_bound_by) = \
+            phase_qp_vs_twin(scheme, tmp)
         model, fw_kernels, htable = demo_freewater(
             scheme, 'Human', os.path.join(tmp, 'fw_Human'))
         study = os.path.join(tmp, 'study_fw')
@@ -761,7 +811,8 @@ def main():
         del y, W
         log(f'FreeWater subject written: {time.time() - t0:.1f} s')
         qp_launches = phase_fw_main_path(study, lut_true, aniso)
-        t1_launches, t1_err, (t1_ms, t1_plain_ms) = phase_loc_probe()
+        t1_launches, t1_err, (t1_ms, t1_plain_ms, t1_lib_ms, t1_bound_ms,
+                              t1_bound_by) = phase_loc_probe()
         t0 = time.time()
         czb_model, czb_kernels, htable = demo_czb(
             czb_scheme(), os.path.join(tmp, 'czb'))
@@ -780,22 +831,32 @@ def main():
         phase_czb_pallas(ev, czb_maps)
         del ev
         phase_noddi_xla(noddi_study, noddi_maps)
+    from amico_tpu_torch.ops import native
+    check(native.available(), "the port's native host library did not load")
+    loaded = sorted(m for m in sys.modules
+                    if m.split('.')[0] in ('jax', 'amico_tpu'))
+    check(not loaded, f'the port imported JAX or amico_tpu: {loaded}')
+    log('standalone: no jax or amico_tpu module loaded; native host library '
+        'in use')
     log(json.dumps({'kernels': [{
         'name': 'noddi_fused', 'route': 'cuda',
         'source': 'amico_tpu_torch/csrc/noddi_fused.cu',
         'replaces': 'amico_tpu/ops/pallas_qp.py:764',
         'launches': launches, 'max_abs_err': max_err,
-        'ms': ms, 'plain_ms': plain_ms}, {
+        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+        'bound_by': bound_by, 'library_ms': None}, {
         'name': 'nneg_qp_tiles', 'route': 'cuda',
         'source': 'amico_tpu_torch/csrc/nneg_qp.cu',
         'replaces': 'amico_tpu/ops/pallas_qp.py:432',
         'launches': qp_launches, 'max_abs_err': qp_err,
-        'ms': qp_ms, 'plain_ms': qp_plain_ms}, {
+        'ms': qp_ms, 'plain_ms': qp_plain_ms, 'bound_ms': qp_bound_ms,
+        'bound_by': qp_bound_by, 'library_ms': None}, {
         'name': 'loc_probe', 'route': 'cuda',
         'source': 'amico_tpu_torch/csrc/loc_probe.cu',
         'replaces': 'tools/loc_experiment.py:34',
         'launches': t1_launches, 'max_abs_err': t1_err,
-        'ms': t1_ms, 'plain_ms': t1_plain_ms}]}))
+        'ms': t1_ms, 'plain_ms': t1_plain_ms, 'bound_ms': t1_bound_ms,
+        'bound_by': t1_bound_by, 'library_ms': t1_lib_ms}]}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

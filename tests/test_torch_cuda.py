@@ -109,6 +109,65 @@ def test_model_fit_on_cuda_launches_the_kernel(problem):
     assert ((est >= 0) & (est <= 1)).all()
 
 
+@pytest.mark.parametrize('C,M,exvivo', [(133, 50, False), (133, 50, True),
+                                         (7, 33, True), (1, 1, False)])
+def test_kernel_at_ragged_shapes(problem, C, M, exvivo):
+    """Tile counts that are not a multiple of the blocks in flight (one a
+    card's SM), tiles whose voxels are not a multiple of the warps a block
+    (32), exvivo and want_x: the kernel against the twin at
+    test_kernel_matches_twin's bounds, and the twin's map of every voxel
+    it was handed."""
+    from amico_tpu_torch.testing import fused_agreement
+    args = _inputs(problem, 'full', exvivo, 4 * ((C + 3) // 4))
+    args = [a[:C].contiguous() if a.dim() == 3 else a for a in args]
+    args[2], args[3] = (args[2][:, :M].contiguous(),
+                        args[3][:, :M].contiguous())
+    out_k = noddi_fused_tiles(*args, want_x=True, is_exvivo=exvivo)
+    out_t = noddi_fused_tiles_torch(*args, want_x=True, is_exvivo=exvivo)
+    torch.cuda.synchronize()
+    assert out_k[0].shape == (C, M, 4 if exvivo else 3)
+    assert out_k[1].shape == (C, M, args[2].shape[-1])
+    assert bool(torch.isfinite(out_k[0]).all())
+    a = fused_agreement(args, out_k, out_t)
+    assert a['map_median'] < 1e-5, a
+    assert a['obj_gap_p99'] < 1e-3, a
+    # at most one voxel of a small call may land on a worse vertex
+    assert a['obj_share_worse'] * C * M <= max(1.0, 1e-3 * C * M), a
+
+
+def test_kernel_takes_a2t_as_a_transposed_view(problem):
+    """The model hands the stage-2 dictionary as the transposed view of its
+    (C, ndwi, n_wm) tensor; the kernel reads it without a copy and gives
+    what the contiguous A2T gives, bit for bit."""
+    args = _inputs(problem, 'full', False, 8)
+    view = list(args)
+    view[4] = args[4].transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view[4].is_contiguous()
+    for a, b in zip(noddi_fused_tiles(*args, want_x=True),
+                    noddi_fused_tiles(*view, want_x=True)):
+        assert torch.equal(a, b)
+
+
+def test_launcher_raises_on_a_refused_launch(cuda):
+    """A launch the card refuses (here: more shared memory than a block may
+    take) raises from the shared launch path, naming the entry point, and
+    counts nothing."""
+    import ctypes
+    from amico_tpu_torch.ops.cuda_build import Launcher
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    launch = Launcher('nneg_qp_launch', [vp] * 6 + [ci] * 3 + [cf, cf, vp])
+    G, b = qp_problems(1, 160, M=4)
+    x = torch.empty_like(b)
+    sched = cuda_qp._qp_sched_array(cuda_qp.qp_schedule(160))
+    before = nneg_qp_tiles.launches
+    with pytest.raises(RuntimeError, match='kernel launch failed '
+                                           r'\(nneg_qp_launch\)'):
+        launch(b.device, G.data_ptr(), b.data_ptr(), None, None, None,
+               x.data_ptr(), 1, 100_000, 160, 0.0, 0.0, sched.ctypes.data)
+    assert nneg_qp_tiles.launches == before
+    torch.cuda.synchronize()
+
+
 def test_kernel_rejects_what_it_does_not_take(problem):
     args = _inputs(problem, 'small', False, 2)
     with pytest.raises(NotImplementedError, match='FISTA'):
@@ -313,6 +372,16 @@ def test_loc_probe_matches_twin_bit_for_bit(cuda, shape):
     torch.cuda.synchronize()
     assert torch.equal(o, loc_probe_torch(x))
     assert loc_probe.launches == before + 1
+
+
+def test_loc_probe_unaligned_buffers(cuda):
+    """Buffers that are not 16 bytes aligned take the scalar path."""
+    from amico_tpu_torch.ops.loc_probe import loc_probe, loc_probe_torch
+    base = torch.randn(1_000_007, device='cuda') * 1e3
+    for offset in (1, 2, 3):
+        x = base[offset:]
+        assert x.data_ptr() % 16 != 0
+        assert torch.equal(loc_probe(x), loc_probe_torch(x))
 
 
 def test_loc_probe_launch_counter_and_rejects(cuda):

@@ -1,6 +1,8 @@
 """The port's Evaluation facade (device='cpu') against the JAX package's
-full-facade golden, in this process and in a fresh one where jax cannot be
-imported (as on a GPU machine without JAX)."""
+full-facade golden, in this process and in a fresh one where neither jax nor
+amico_tpu can be imported (the port stands alone, as on a GPU machine
+without JAX); and no source of the port or chip_smoke.py imports either."""
+import ast
 import os
 import pickle
 import subprocess
@@ -23,7 +25,7 @@ def run_port_facade(study, home):
     import torch
     torch.set_num_threads(1)
     import amico_tpu_torch
-    from amico_tpu.io import nifti
+    from amico_tpu_torch.io import nifti
     ev = amico_tpu_torch.Evaluation(study, 'subj', device='cpu')
     ev.set_config('doComputeNRMSE', True)
     ev.set_config('doSaveModulatedMaps', True)
@@ -72,13 +74,19 @@ def test_facade_runs_without_jax(study, tmp_path):
     code = (
         "import sys, pickle\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['amico_tpu'] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "from tests.test_torch_facade import run_port_facade\n"
         f"maps, keys = run_port_facade({study!r}, {str(tmp_path / 'home')!r})\n"
-        "import amico_tpu_torch.models.cylinder_zeppelin_ball\n"
-        "import amico_tpu_torch.ops.loc_probe, amico_tpu_torch.ops.solvers\n"
-        "import amico_tpu_torch.testing, amico_tpu_torch.tools.loc_experiment\n"
-        "assert not any(m == 'jax' or m.startswith('jax.')\n"
+        "import importlib, pkgutil, amico_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    amico_tpu_torch.__path__, 'amico_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'amico_tpu_torch.ops.native' in names, names\n"
+        "from amico_tpu_torch.ops import native\n"
+        "assert native.available()\n"
+        "assert not any(m.split('.')[0] in ('jax', 'amico_tpu')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         f"pickle.dump((maps, keys), open({str(tmp_path / 'out.pkl')!r}, 'wb'))\n")
     env = dict(os.environ, JAX_PLATFORMS='cpu')
@@ -97,6 +105,46 @@ def test_package_sources_import_no_jax():
                 with open(os.path.join(dirpath, f)) as fid:
                     text = fid.read()
                 assert 'import jax' not in text and 'from jax' not in text, f
+
+
+def _imports(path):
+    """Top-level module names a source imports (relative imports skipped)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_and_chip_smoke_import_neither_jax_nor_amico_tpu():
+    files = [os.path.join(REPO, 'chip_smoke.py')]
+    for dirpath, _, names in os.walk(os.path.join(REPO, 'amico_tpu_torch')):
+        files += [os.path.join(dirpath, f) for f in names if f.endswith('.py')]
+    assert len(files) > 30
+    bad = [(os.path.relpath(f, REPO), name) for f in files
+           for name in _imports(f)
+           if name.split('.')[0] in ('jax', 'amico_tpu')]
+    assert not bad, bad
+
+
+def test_principal_directions_default_to_the_card():
+    """No device means the card, as the facade's 'device' key does: without
+    one it raises instead of running on the CPU."""
+    import torch
+
+    from amico_tpu_torch import AmicoError
+    from amico_tpu_torch.pipeline import principal_directions
+    from amico_tpu_torch.testing import demo_scheme
+    scheme = demo_scheme()
+    y = np.random.RandomState(0).rand(5, scheme.nS)
+    if torch.cuda.is_available():
+        pytest.skip('a card is present: the default runs there')
+    with pytest.raises(AmicoError, match='no CUDA card'):
+        principal_directions(y, scheme, 'OLS', False)
+    assert principal_directions(y, scheme, 'OLS', False,
+                                device='cpu').shape == (5, 3)
 
 
 def test_model_zoo(tmp_path):

@@ -206,3 +206,25 @@ def test_wrapper_rejects_malformed_inputs():
         nneg_qp_tiles(G, b.double())
     with pytest.raises(ValueError, match='device'):
         nneg_qp_tiles(G, b.to('meta'))
+
+
+def test_solve_work_counts_rounds_and_running_tiles():
+    """testing.solve_work on the tile QP's twin: a fixed schedule counts
+    sum_r inner (1 + cg_r) + 1 matvecs a voxel, plus 1 + polish; with
+    `converge` the continuation counts only on the tiles still running."""
+    from amico_tpu_torch.testing import solve_work
+    G, b = (torch.from_numpy(a) for a in problems(C=3, M=16, n=11, seed=2))
+    kw = dict(fista_iters=0, refine_rounds=3, cg_iters=(2, 3, 4),
+              inner_passes=2)
+    out, work = solve_work(nneg_qp_tiles_torch, G, b, None, 0.0, 1e-3, **kw)
+    assert torch.equal(out, nneg_qp_tiles_torch(G, b, None, 0.0, 1e-3, **kw))
+    per_voxel = sum(2 * (1 + c) + 1 for c in (2, 3, 4)) + 1 + 4
+    assert work['matvecs'] == per_voxel * 3 * 16
+    _, cont = solve_work(nneg_qp_tiles_torch, G, b, None, 0.0, 1e-3,
+                         converge=True, **kw)
+    n_cont = cont['matvecs'] / 16 - 3 * (per_voxel - 5)
+    # with n = 11 the continuation's CG budget is npad = 16: a round is
+    # 2 (1 + 16) + 1 = 35 matvecs a voxel, the polish 1 + 16; the count
+    # holds whole rounds of whole tiles, fewer than every tile to its cap
+    rounds = (n_cont - 3 * 17) / 35
+    assert rounds == int(rounds) and 0 < rounds < 3 * 3 * 16

@@ -239,3 +239,27 @@ def test_tiebreak_and_tie_score_raise(dictionaries, flag):
 def test_unsupported_schedules_raise(stage, has_fista):
     with pytest.raises(NotImplementedError):
         cuda_qp.stage_schedule(stage, has_fista)
+
+
+@pytest.mark.parametrize('exvivo', [False, True])
+def test_solve_work_counts_the_schedule(dictionaries, exvivo):
+    """testing.solve_work (the roofline's operation count) leaves the
+    twin's result as it is and counts the production schedule's matvecs:
+    stage 1, 4 rounds of one CG pass and an add, 47 matvecs; stage 2, 127;
+    stage 3, 151; 325 a voxel, whatever the data."""
+    from amico_tpu_torch.testing import solve_work
+    scheme, kernels = dictionaries
+    args = [torch.from_numpy(a) for a in fused_inputs(
+        scheme, kernels['full'], 2, 16, seed=4, exvivo=exvivo)]
+    out, work = solve_work(noddi_fused_tiles_torch, *args, want_x=True,
+                           is_exvivo=exvivo)
+    ref = noddi_fused_tiles_torch(*args, want_x=True, is_exvivo=exvivo)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    C, M, na = args[2].shape
+    n_wm, ndwi = args[4].shape[1:]
+    assert work['matvecs'] == 325 * C * M
+    assert 0 < work['nonzeros'] <= work['matvecs'] * na
+    # b2 = A2'Y2 alone, then every matvec at least its nonzeros
+    assert work['flops'] >= 2 * C * M * ndwi * n_wm + 2 * work['nonzeros']
+    assert work['reads_slots'] <= work['reads_full'] == \
+        5 * work['nonzeros']
