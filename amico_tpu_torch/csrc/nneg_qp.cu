@@ -20,30 +20,64 @@
 //   a final masked-CG polish at budget `polish`, then x = max(x, 0).
 // Zero rounds return the FISTA iterate (or the warm start) as it is.
 //
-// Layout.  One block of QP_NWARPS warps per tile, one warp per voxel,
-// looping over the tile's voxels; K = ceil(n/32) coefficients per lane
-// (n <= 160), one instantiation per K.  G lives transposed in dynamic
-// shared memory (csrc/qp_warp.cuh).  The tile's voxels meet only at the
-// `converge` test, so every voxel's working set is kept in shared memory
-// (K ballot words) and its iterate in the output tensor (each lane touches
-// only its own entries) between the block-wide rounds; "done" is a
-// __syncthreads_and over the warps' stability and a shared max of their
-// |dx|.
+// Layout.  A tile is a thread block cluster of QP_CLUSTER blocks, each on
+// its own SM, for n <= 32, and one block above.  A voxel is solved by a
+// group of W lanes (csrc/qp_warp.cuh): W = 8 for n <= 8 (four voxels a
+// warp), 16 for n <= 16 (two), 32 above (one, with K = ceil(n/32)
+// coefficients a lane, n <= 160); one instantiation per (W, K).  Each block
+// holds G transposed in dynamic shared memory, replicated across the row
+// so that the groups of a warp read disjoint banks.  Group g of the tile
+// (block rank r's groups are r*NG .. r*NG + NG-1) takes the tile's voxels
+// g, g + NGT, ... (NGT groups a tile), so the groups of a warp hold
+// neighbouring voxels.  Each voxel keeps its state on chip from its
+// scheduled rounds through the continuation and the polish, in dynamic
+// shared memory after G: its working-set and coefficient-mask words (K
+// words of W bits each), its scale max|b_eff| + 1e-30, and its x and b_eff
+// (n floats each).  Where x and b_eff do not both fit beside G (large n*M;
+// the wrapper's qp_geometry mirrors the rule), b_eff is recomputed from b
+// each round, and then x too stays in the output tensor.  So a round reads
+// no device memory, and x is written to the output once, by the polish.
+// The tile's voxels meet only at the `converge` test: each block takes a
+// __syncthreads_and over its groups' stability and a block max of their
+// |dx|, and the blocks of a cluster exchange the two through distributed
+// shared memory, one cluster barrier a round (tile_vote).
 //
 // What bounds it.  Not memory: a tile reads G (n*n floats) and b once and
-// writes x once.  FreeWater's n = 11 leaves G at 1.4 KB of shared memory,
-// and each CG step is a chain of dependent warp shuffles (the ballot-driven
-// sparse matvec, two dot products), so a warp waits on shuffle latency and
-// uses 11 of its 32 lanes.  The design answers with occupancy: small
-// blocks of 16 warps, several resident per SM, so other warps' chains fill
-// the wait.
+// writes x once.  Nor the operations the inputs need (testing.solve_work).
+// Each CG step is a chain of dependent shuffles (the ballot-driven sparse
+// matvec, two dot products) and ~200 warp instructions.  A straggler tile,
+// one held by the `converge` continuation to its round cap while the other
+// SMs sit idle, is bound by the instruction issue of the SMs it runs on
+// (PERF.md).  The design answers with voxels in flight and SMs a
+// tile: lane groups (the lanes past n of a whole warp did nothing), 32
+// warps a block, two blocks a tile, and no device-memory round trip in a
+// round.  Every float operation of a voxel is the whole-warp kernel's, in
+// the same order, and the vote's AND and max are exact, so the results are
+// bit-identical to one block a tile of whole warps (PERF.md has the sweeps
+// that picked NWARPS, MINB and QP_CLUSTER).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "qp_warp.cuh"
 
+namespace coop = cooperative_groups;
+
 #define QP_MAXK 5         // coefficients per lane: n <= 160
 #define QP_MAXR 32        // per-round CG budgets; later rounds reuse the last
-#define QP_NWARPS 16      // warps per block (voxels in flight per tile)
+// the timed sweep's pick (PERF.md); -D overrides them for a sweep
+#ifndef NWARPS
+#define NWARPS 32         // warps per block for n <= 32
+#endif
+#ifndef MINB
+#define MINB 1            // blocks resident on an SM (register budget)
+#endif
+#ifndef QP_CLUSTER
+#define QP_CLUSTER 2      // blocks a tile for n <= 32 (a thread block cluster)
+#endif
+#define NWARPS_WIDE 16    // warps per block for n > 32 (K > 1 a lane), one
+                          // block a tile
+#define QP_SMEM_RESERVE 1024  // bytes of a block's shared memory kept for
+                              // the static arrays (ops/cuda_qp.py mirrors it)
 
 struct QpSched {
   int fista, rounds, inner, add_k, polish, cont_cg, cont_rounds;
@@ -56,91 +90,90 @@ struct QpParams {
   const float* mask;  // (C, M, n) 0/1, or null
   const float* m0;    // (C, M, n) 0/1, or null: seeds the working set
   const float* x0;    // (C, M, n), or null: with m0, CG's warm start
-  float* x;           // (C, M, n): the result, and each voxel's iterate
+  float* x;           // (C, M, n): the result
   int M, n;
+  int state;          // 2: x and b_eff in shared memory; 1: x only; 0: neither
   float lam1, lam2;
   QpSched s;
 };
 
-template <int K>
-__device__ __forceinline__ void load_voxel(const QpParams& P, size_t vox,
-                                           int lane, float (&b)[K],
-                                           unsigned& cmask) {
-  cmask = 0;
+// a tile's per-voxel state (see Layout)
+struct VoxState {
+  unsigned* mw;  // (M, K) working-set words
+  unsigned* cw;  // (M, K) coefficient-mask words
+  float* sc;     // (M,) max|b_eff| + 1e-30
+  float* xs;     // (M, n) x: shared memory, or the tile's rows of the output
+  float* bs;     // (M, n) b_eff in shared memory, or null
+};
+
+template <int K, int W>
+__device__ __forceinline__ void load_row(const float* src, int n, int lane,
+                                         float (&a)[K]) {
 #pragma unroll
   for (int k = 0; k < K; k++) {
-    const int i = lane + 32 * k;
-    const bool on = i < P.n && (!P.mask || P.mask[vox * P.n + i] != 0.f);
-    if (on) cmask |= 1u << k;
-    b[k] = on ? P.b[vox * P.n + i] : 0.f;
+    const int i = lane + W * k;
+    a[k] = i < n ? src[i] : 0.f;
   }
 }
 
-template <int K>
-__device__ __forceinline__ void load_x(const QpParams& P, size_t vox,
-                                       int lane, float (&x)[K]) {
+template <int K, int W>
+__device__ __forceinline__ void store_row(float* dst, int n, int lane,
+                                          const float (&a)[K]) {
 #pragma unroll
   for (int k = 0; k < K; k++) {
-    const int i = lane + 32 * k;
-    x[k] = i < P.n ? P.x[vox * P.n + i] : 0.f;
+    const int i = lane + W * k;
+    if (i < n) dst[i] = a[k];
   }
 }
 
-template <int K>
-__device__ __forceinline__ void store_x(const QpParams& P, size_t vox,
-                                        int lane, const float (&x)[K]) {
+template <int K, int W>
+__device__ __forceinline__ void store_bits(unsigned* w, unsigned m,
+                                           const Lanes<W>& L) {
 #pragma unroll
   for (int k = 0; k < K; k++) {
-    const int i = lane + 32 * k;
-    if (i < P.n) P.x[vox * P.n + i] = x[k];
+    const unsigned word = L.own(__ballot_sync(L.mask(), bit(m, k)));
+    if (L.lane == 0) w[k] = word;
   }
 }
 
-template <int K>
-__device__ __forceinline__ void store_m(unsigned* mw, unsigned m, int lane) {
-#pragma unroll
-  for (int k = 0; k < K; k++) {
-    const unsigned w = __ballot_sync(FULL, bit(m, k));
-    if (lane == 0) mw[k] = w;
-  }
-}
-
-template <int K>
-__device__ __forceinline__ unsigned load_m(const unsigned* mw, int lane) {
+template <int K, int W>
+__device__ __forceinline__ unsigned load_bits(const unsigned* w,
+                                              const Lanes<W>& L) {
   unsigned m = 0;
 #pragma unroll
-  for (int k = 0; k < K; k++) m |= ((mw[k] >> lane) & 1u) << k;
+  for (int k = 0; k < K; k++) m |= ((w[k] >> L.lane) & 1u) << k;
   return m;
 }
 
-// L = v'Gv * 1.01 + 1e-30 after 10 power iterations from ones (one warp)
-template <int K>
-__device__ __forceinline__ float lipschitz(const float* Gs, int n, int lane) {
+// L = v'Gv * 1.01 + 1e-30 after 10 power iterations from ones (one group)
+template <int K, int W>
+__device__ __forceinline__ float lipschitz(const float* Gs, int n,
+                                           const Lanes<W>& L) {
   float v[K], w[K];
 #pragma unroll
-  for (int k = 0; k < K; k++) v[k] = lane + 32 * k < n ? 1.f : 0.f;
+  for (int k = 0; k < K; k++) v[k] = L.lane + W * k < n ? 1.f : 0.f;
   for (int it = 0; it < 10; it++) {
-    gmv<K>(Gs, v, w, lane);
-    const float nrm = sqrtf(vdot<K>(w, w)) + 1e-30f;
+    gmv<K, W>(Gs, v, w, L);
+    const float nrm = sqrtf(vdot<K, W>(w, w, L)) + 1e-30f;
 #pragma unroll
     for (int k = 0; k < K; k++) v[k] = w[k] / nrm;
   }
-  gmv<K>(Gs, v, w, lane);
-  return vdot<K>(v, w) * 1.01f + 1e-30f;
+  gmv<K, W>(Gs, v, w, L);
+  return vdot<K, W>(v, w, L) * 1.01f + 1e-30f;
 }
 
 // FISTA from zero with adaptive restart; b is zero outside cmask
-template <int K>
+template <int K, int W>
 __device__ __forceinline__ void fista(const float* Gs, const float (&b)[K],
                                       unsigned cmask, float l1, float l2,
                                       float step, int iters, float (&x)[K],
-                                      int lane) {
+                                      const Lanes<W>& L) {
   float z[K], Gz[K], xn[K];
 #pragma unroll
   for (int k = 0; k < K; k++) x[k] = z[k] = 0.f;
   float t = 1.f;
   for (int it = 0; it < iters; it++) {
-    gmv<K>(Gs, z, Gz, lane);
+    gmv<K, W>(Gs, z, Gz, L);
     float part = 0.f;
 #pragma unroll
     for (int k = 0; k < K; k++) {
@@ -148,7 +181,7 @@ __device__ __forceinline__ void fista(const float* Gs, const float (&b)[K],
       xn[k] = bit(cmask, k) ? fmaxf(z[k] - step * (grad + l1), 0.f) : 0.f;
       part += (z[k] - xn[k]) * (xn[k] - x[k]);
     }
-    const bool restart = warp_sum(part) > 0.f;
+    const bool restart = group_sum<W>(part, L.mask()) > 0.f;
     const float t_new = 0.5f * (1.f + sqrtf(1.f + 4.f * t * t));
     const float beta = restart ? 0.f : (t - 1.f) / t_new;
     t = restart ? 1.f : t_new;
@@ -160,33 +193,43 @@ __device__ __forceinline__ void fista(const float* Gs, const float (&b)[K],
   }
 }
 
-// warm start and the scheduled rounds of one voxel; returns whether its
-// last round left it stable, and its scale (max|b_eff| + 1e-30)
-template <int K>
+// warm start and the scheduled rounds of voxel v of the tile (vox in the
+// batch), then its state on chip; returns whether its last round left it
+// stable, and its scale
+template <int K, int W>
 __device__ __forceinline__ bool scheduled(const QpParams& P, const float* Gs,
-                                          float step, size_t vox, int lane,
-                                          unsigned* mw, float& scale) {
+                                          float step, const VoxState& VS,
+                                          int v, size_t vox,
+                                          const Lanes<W>& L, float& scale) {
+  const int n = P.n, lane = L.lane;
+  const size_t off = vox * n;
   float b[K], x[K];
-  unsigned cmask;
-  load_voxel<K>(P, vox, lane, b, cmask);
+  unsigned cmask = 0;
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int i = lane + W * k;
+    const bool on = i < n && (!P.mask || P.mask[off + i] != 0.f);
+    if (on) cmask |= 1u << k;
+    b[k] = on ? P.b[off + i] : 0.f;
+  }
   unsigned m = 0;
   if (P.m0) {
 #pragma unroll
     for (int k = 0; k < K; k++) {
-      const int i = lane + 32 * k;
+      const int i = lane + W * k;
       const bool on = bit(cmask, k);
-      x[k] = on && P.x0 ? P.x0[vox * P.n + i] : 0.f;
-      if (on && P.m0[vox * P.n + i] != 0.f) m |= 1u << k;
+      x[k] = on && P.x0 ? P.x0[off + i] : 0.f;
+      if (on && P.m0[off + i] != 0.f) m |= 1u << k;
     }
   } else if (P.s.fista > 0) {
-    fista<K>(Gs, b, cmask, P.lam1, P.lam2, step, P.s.fista, x, lane);
+    fista<K, W>(Gs, b, cmask, P.lam1, P.lam2, step, P.s.fista, x, L);
   } else {
 #pragma unroll
     for (int k = 0; k < K; k++) x[k] = 0.f;
   }
   scale = 0.f;
   if (P.s.rounds == 0) {
-    store_x<K>(P, vox, lane, x);
+    store_row<K, W>(P.x + off, n, lane, x);
     return true;
   }
   if (!P.m0) {
@@ -194,137 +237,226 @@ __device__ __forceinline__ bool scheduled(const QpParams& P, const float* Gs,
     for (int k = 0; k < K; k++)
       if (x[k] > 0.f && bit(cmask, k)) m |= 1u << k;
   }
-  Stage<K> S;
-  stage_init<K>(S, Gs, P.lam1, P.lam2, b, cmask);
+  Stage<K, W> S;
+  stage_init<K, W>(S, Gs, P.lam1, P.lam2, b, cmask, L);
   bool stable = false;
   for (int r = 0; r < P.s.rounds; r++)
-    stable = as_round<K>(S, x, m, P.s.cg[min(r, QP_MAXR - 1)], P.s.inner,
-                         P.s.add_k, lane);
-  store_x<K>(P, vox, lane, x);
-  store_m<K>(mw, m, lane);
+    stable = as_round<K, W>(S, x, m, P.s.cg[min(r, QP_MAXR - 1)], P.s.inner,
+                            P.s.add_k);
+  store_row<K, W>(VS.xs + (size_t)v * n, n, lane, x);
+  if (VS.bs) store_row<K, W>(VS.bs + (size_t)v * n, n, lane, S.beff);
+  store_bits<K, W>(VS.mw + v * K, m, L);
+  store_bits<K, W>(VS.cw + v * K, cmask, L);
+  if (lane == 0) VS.sc[v] = S.scale;
   scale = S.scale;
   return stable;
 }
 
-// one continuation round of one voxel; returns its stability, and the
+// voxel v's stage from its state: what stage_init computed, read back
+template <int K, int W>
+__device__ __forceinline__ void load_stage(Stage<K, W>& S, const QpParams& P,
+                                           const float* Gs, const VoxState& VS,
+                                           int v, size_t vox,
+                                           const Lanes<W>& L) {
+  S.Gs = Gs;
+  S.l2 = P.lam2;
+  S.L = L;
+  S.cmask = load_bits<K, W>(VS.cw + v * K, L);
+  if (VS.bs) {
+    load_row<K, W>(VS.bs + (size_t)v * P.n, P.n, L.lane, S.beff);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k++) {
+      const int i = L.lane + W * k;
+      S.beff[k] = bit(S.cmask, k) ? P.b[vox * P.n + i] - P.lam1 : 0.f;
+    }
+  }
+  S.scale = VS.sc[v];
+  S.gate = QP_TOL * S.scale;
+}
+
+// one continuation round of voxel v; returns its stability, and the
 // largest |dx| of the round in dx
-template <int K>
+template <int K, int W>
 __device__ __forceinline__ bool cont_round(const QpParams& P, const float* Gs,
-                                           size_t vox, int lane, unsigned* mw,
+                                           const VoxState& VS, int v,
+                                           size_t vox, const Lanes<W>& L,
                                            float& dx) {
-  float b[K], x[K], x_old[K];
-  unsigned cmask;
-  load_voxel<K>(P, vox, lane, b, cmask);
-  Stage<K> S;
-  stage_init<K>(S, Gs, P.lam1, P.lam2, b, cmask);
-  load_x<K>(P, vox, lane, x);
-  unsigned m = load_m<K>(mw, lane);
+  Stage<K, W> S;
+  load_stage<K, W>(S, P, Gs, VS, v, vox, L);
+  float* xv = VS.xs + (size_t)v * P.n;
+  float x[K], x_old[K];
+  load_row<K, W>(xv, P.n, L.lane, x);
+  unsigned m = load_bits<K, W>(VS.mw + v * K, L);
 #pragma unroll
   for (int k = 0; k < K; k++) x_old[k] = x[k];
-  const bool stable = as_round<K>(S, x, m, P.s.cont_cg, P.s.inner, P.s.add_k,
-                                  lane);
+  const bool stable = as_round<K, W>(S, x, m, P.s.cont_cg, P.s.inner,
+                                     P.s.add_k);
   float d = 0.f;
 #pragma unroll
   for (int k = 0; k < K; k++) d = fmaxf(d, fabsf(x[k] - x_old[k]));
-  dx = warp_max(d);
-  store_x<K>(P, vox, lane, x);
-  store_m<K>(mw, m, lane);
+  dx = group_max<W>(d, L.mask());
+  store_row<K, W>(xv, P.n, L.lane, x);
+  store_bits<K, W>(VS.mw + v * K, m, L);
   return stable;
 }
 
-template <int K>
+template <int K, int W>
 __device__ __forceinline__ void polish(const QpParams& P, const float* Gs,
-                                       size_t vox, int lane,
-                                       const unsigned* mw) {
-  float b[K], x[K];
-  unsigned cmask;
-  load_voxel<K>(P, vox, lane, b, cmask);
-  Stage<K> S;
-  stage_init<K>(S, Gs, P.lam1, P.lam2, b, cmask);
-  load_x<K>(P, vox, lane, x);
-  unsigned m = load_m<K>(mw, lane);
-  inner_solve<K>(S, x, m, P.s.polish, lane);
+                                       const VoxState& VS, int v, size_t vox,
+                                       const Lanes<W>& L) {
+  Stage<K, W> S;
+  load_stage<K, W>(S, P, Gs, VS, v, vox, L);
+  float x[K];
+  load_row<K, W>(VS.xs + (size_t)v * P.n, P.n, L.lane, x);
+  unsigned m = load_bits<K, W>(VS.mw + v * K, L);
+  inner_solve<K, W>(S, x, m, P.s.polish);
 #pragma unroll
   for (int k = 0; k < K; k++) x[k] = fmaxf(x[k], 0.f);
-  store_x<K>(P, vox, lane, x);
+  store_row<K, W>(P.x + vox * P.n, P.n, L.lane, x);
 }
 
-// max of a warp-uniform value over the block (every thread must call it)
+// max over the block of a value that is the same on each group's lanes
+// (every thread must call it)
+template <int NW>
 __device__ __forceinline__ float block_max(float v, float* red, int warp,
-                                           int lane) {
-  if (lane == 0) red[warp] = v;
+                                           int wlane) {
+  v = warp_max(v);
+  if (wlane == 0) red[warp] = v;
   __syncthreads();
   float r = red[0];
 #pragma unroll
-  for (int w = 1; w < QP_NWARPS; w++) r = fmaxf(r, red[w]);
+  for (int w = 1; w < NW; w++) r = fmaxf(r, red[w]);
   __syncthreads();
   return r;
 }
 
-template <int K>
-__global__ void __launch_bounds__(QP_NWARPS * 32)
+// the tile's vote: the AND of `stable` and the max of v over the tile's
+// groups, over the block and then (CS > 1) over the blocks of its cluster
+// through distributed shared memory (every thread must call it).  The
+// slots alternate with `turn`, so a block still reading one turn's slots
+// never meets the next turn's writes: a cluster barrier lies between.
+template <int NW, int CS>
+__device__ __forceinline__ bool tile_vote(bool stable, float& v, float* red,
+                                          float* slots, int turn, int warp,
+                                          int wlane) {
+  stable = __syncthreads_and(stable);
+  v = block_max<NW>(v, red, warp, wlane);
+  if (CS > 1) {
+    coop::cluster_group cl = coop::this_cluster();
+    float* mine = slots + 2 * (turn & 1);
+    if (threadIdx.x == 0) {
+      mine[0] = stable ? 1.f : 0.f;
+      mine[1] = v;
+    }
+    cl.sync();
+#pragma unroll
+    for (int r = 0; r < CS; r++) {
+      const float* theirs = cl.map_shared_rank(mine, r);
+      stable = stable && theirs[0] != 0.f;
+      v = fmaxf(v, theirs[1]);
+    }
+  }
+  return stable;
+}
+
+// one tile per cluster of CS blocks (one block when CS = 1)
+template <int W, int K, int NW, int CS>
+__global__ void __launch_bounds__(NW * 32, MINB)
 nneg_qp_kernel(const QpParams P) {
   extern __shared__ float smem[];
-  __shared__ float red[QP_NWARPS];
+  __shared__ float red[NW];
+  __shared__ float slots[4];
   __shared__ float s_step;
-  constexpr int LDG = 32 * K;
+  constexpr int LDG = 32 * K;       // Gram row stride
+  constexpr int GPW = 32 / W;       // groups a warp
+  constexpr int NG = NW * GPW;      // groups a block
+  constexpr int NGT = CS * NG;      // groups a tile
+  const int n = P.n, M = P.M, c = blockIdx.x / CS, tid = threadIdx.x;
+  const int warp = tid >> 5, wlane = tid & 31;
+  const Lanes<W> L = lanes_of<W>(wlane);
+  const int rank = CS > 1 ? (int)coop::this_cluster().block_rank() : 0;
+  const int grp = rank * NG + warp * GPW + wlane / W;   // in the tile
+  const size_t base = (size_t)c * M;
   float* Gs = smem;
-  unsigned* mw = reinterpret_cast<unsigned*>(smem + P.n * LDG);
-  const int c = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  // transpose into shared memory: Gs[j*LDG + i] = G[i][j], zero for i >= n
-  const float* G = P.G + (size_t)c * P.n * P.n;
-  for (int e = tid; e < P.n * LDG; e += blockDim.x) {
-    const int j = e / LDG, i = e - j * LDG;
-    Gs[e] = i < P.n ? G[(size_t)i * P.n + j] : 0.f;
+  VoxState VS;
+  VS.mw = reinterpret_cast<unsigned*>(Gs + n * LDG);
+  VS.cw = VS.mw + M * K;
+  VS.sc = reinterpret_cast<float*>(VS.cw + M * K);
+  VS.xs = P.state >= 1 ? VS.sc + M : P.x + base * n;
+  VS.bs = P.state == 2 ? VS.sc + M + (size_t)M * n : nullptr;
+  // transposed and replicated: Gs[j*LDG + 32k + l] = G[(l mod W) + Wk][j]
+  const float* G = P.G + (size_t)c * n * n;
+  for (int e = tid; e < n * LDG; e += blockDim.x) {
+    const int j = e / LDG, r = e - j * LDG;
+    const int i = (r & 31) % W + W * (r >> 5);
+    Gs[e] = i < n ? G[(size_t)i * n + j] : 0.f;
   }
   __syncthreads();
   float step = 0.f;
   if (!P.m0 && P.s.fista > 0) {
-    if (warp == 0) {
-      const float L = lipschitz<K>(Gs, P.n, lane);
-      if (lane == 0) s_step = 1.f / (L + P.lam2 + 1e-30f);
+    if (grp == rank * NG) {
+      const float Lc = lipschitz<K, W>(Gs, n, L);
+      if (L.lane == 0) s_step = 1.f / (Lc + P.lam2 + 1e-30f);
     }
     __syncthreads();
     step = s_step;
   }
-  const size_t base = (size_t)c * P.M;
-  bool w_stable = true;
-  float w_scale = 0.f;
-  for (int v = warp; v < P.M; v += QP_NWARPS) {
+  bool g_stable = true;
+  float g_scale = 0.f;
+  for (int v = grp; v < M; v += NGT) {
     float sc;
-    w_stable &= scheduled<K>(P, Gs, step, base + v, lane, mw + v * K, sc);
-    w_scale = fmaxf(w_scale, sc);
+    g_stable &= scheduled<K, W>(P, Gs, step, VS, v, base + v, L, sc);
+    g_scale = fmaxf(g_scale, sc);
   }
   if (P.s.rounds == 0) return;
-  bool done = __syncthreads_and(w_stable);
+  float xtol = g_scale;
+  bool done = tile_vote<NW, CS>(g_stable, xtol, red, slots, 0, warp, wlane);
+  xtol *= QP_TOL;
   if (P.s.cont_cg > 0) {
-    const float xtol = QP_TOL * block_max(w_scale, red, warp, lane);
     for (int i = 0; i < P.s.cont_rounds && !done; i++) {
-      bool ws = true;
-      float wdx = 0.f;
-      for (int v = warp; v < P.M; v += QP_NWARPS) {
+      bool gs = true;
+      float gdx = 0.f;
+      for (int v = grp; v < M; v += NGT) {
         float dx;
-        ws &= cont_round<K>(P, Gs, base + v, lane, mw + v * K, dx);
-        wdx = fmaxf(wdx, dx);
+        gs &= cont_round<K, W>(P, Gs, VS, v, base + v, L, dx);
+        gdx = fmaxf(gdx, dx);
       }
-      const bool st = __syncthreads_and(ws);
-      done = st || block_max(wdx, red, warp, lane) <= xtol;
+      const bool st = tile_vote<NW, CS>(gs, gdx, red, slots, i + 1, warp,
+                                        wlane);
+      done = st || gdx <= xtol;
     }
   }
-  __syncthreads();
-  for (int v = warp; v < P.M; v += QP_NWARPS)
-    polish<K>(P, Gs, base + v, lane, mw + v * K);
+  // no block leaves while another may still read its slots
+  if (CS > 1) coop::this_cluster().sync();
+  // every path above ends in a block barrier after the last state write
+  for (int v = grp; v < M; v += NGT)
+    polish<K, W>(P, Gs, VS, v, base + v, L);
 }
 
-template <int K>
+template <int W, int K, int NW, int CS = 1>
 static int launch(const QpParams& P, int C, size_t smem, cudaStream_t st) {
+  auto kernel = nneg_qp_kernel<W, K, NW, CS>;
   cudaError_t e = cudaFuncSetAttribute(
-      nneg_qp_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  nneg_qp_kernel<K><<<C, QP_NWARPS * 32, smem, st>>>(P);
-  return (int)cudaGetLastError();
+  if (CS == 1) {
+    kernel<<<C, NW * 32, smem, st>>>(P);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * CS);
+  cfg.blockDim = dim3(NW * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CS;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, P);
 }
 
 extern "C" {
@@ -359,15 +491,32 @@ int nneg_qp_launch(const void* G, const void* b, const void* mask,
   if (P.s.fista < 0 || P.s.rounds < 0 || P.s.inner < 0 || P.s.add_k < 1)
     return (int)cudaErrorInvalidValue;
   if (C == 0 || M == 0) return 0;
-  const int K = (n + 31) / 32;
-  const size_t smem = ((size_t)n * 32 * K + (size_t)M * K) * sizeof(float);
+  // group width and coefficients a lane; G, then M voxels' words and
+  // scale, then (as they fit) their x and b_eff
+  const int W = n <= 8 ? 8 : n <= 16 ? 16 : 32;
+  const int K = (n + W - 1) / W;
+  const size_t words = (size_t)n * 32 * K + (size_t)M * (2 * K + 1);
+  const size_t rows = (size_t)M * n;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t avail = optin > QP_SMEM_RESERVE
+                           ? (size_t)(optin - QP_SMEM_RESERVE) / sizeof(float)
+                           : 0;
+  P.state = words + 2 * rows <= avail ? 2 : words + rows <= avail ? 1 : 0;
+  const size_t smem = (words + P.state * rows) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
+  if (W == 8) return launch<8, 1, NWARPS, QP_CLUSTER>(P, C, smem, st);
+  if (W == 16) return launch<16, 1, NWARPS, QP_CLUSTER>(P, C, smem, st);
   switch (K) {
-    case 1: return launch<1>(P, C, smem, st);
-    case 2: return launch<2>(P, C, smem, st);
-    case 3: return launch<3>(P, C, smem, st);
-    case 4: return launch<4>(P, C, smem, st);
-    default: return launch<5>(P, C, smem, st);
+    case 1: return launch<32, 1, NWARPS, QP_CLUSTER>(P, C, smem, st);
+    case 2: return launch<32, 2, NWARPS_WIDE>(P, C, smem, st);
+    case 3: return launch<32, 3, NWARPS_WIDE>(P, C, smem, st);
+    case 4: return launch<32, 4, NWARPS_WIDE>(P, C, smem, st);
+    default: return launch<32, 5, NWARPS_WIDE>(P, C, smem, st);
   }
 }
 

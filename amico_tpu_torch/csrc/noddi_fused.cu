@@ -93,7 +93,7 @@ __device__ __forceinline__ void as_solve(const float* Gs, const StageSched& sc, 
                          float l2, const Vec& b, unsigned cmask, bool seed_m0,
                          Vec& x, int lane) {
   Stage<KMAX> S;
-  stage_init<KMAX>(S, Gs, l1, l2, b, cmask);
+  stage_init<KMAX>(S, Gs, l1, l2, b, cmask, lanes_of<32>(lane));
   unsigned m = 0;
   if (seed_m0) {
     m = cmask;
@@ -103,8 +103,8 @@ __device__ __forceinline__ void as_solve(const float* Gs, const StageSched& sc, 
       if (x[k] > 0.f && bit(cmask, k)) m |= 1u << k;
   }
   for (int r = 0; r < sc.rounds; r++)
-    as_round<KMAX>(S, x, m, sc.cg[r], sc.inner[r], sc.add_k, lane);
-  inner_solve<KMAX>(S, x, m, sc.polish, lane);
+    as_round<KMAX>(S, x, m, sc.cg[r], sc.inner[r], sc.add_k);
+  inner_solve<KMAX>(S, x, m, sc.polish);
 #pragma unroll
   for (int k = 0; k < KMAX; k++) x[k] = fmaxf(x[k], 0.f);
 }

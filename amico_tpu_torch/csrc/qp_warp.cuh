@@ -1,17 +1,28 @@
-// Warp-level Lawson-Hanson solver pieces shared by the tile QP kernels
+// Lane-group Lawson-Hanson solver pieces shared by the tile QP kernels
 // (noddi_fused.cu, nneg_qp.cu), as amico_tpu/ops/pallas_qp.py's kernels
 // share _build_as_solve.
 //
-// One warp solves one voxel.  Lane l owns coefficients l, l+32, ...,
-// l+32(K-1) in registers (K = coefficients per lane, a template argument;
-// n <= 32K).  A working set or coefficient mask is a per-lane word whose
-// bit k stands for row lane+32k.  Dot products, max, min and argmax are warp
-// shuffles, so every scalar below is the same on all lanes.
+// One group of W consecutive lanes of a warp solves one voxel (W = 8, 16 or
+// 32: 32/W voxels a warp; the fused NODDI kernel takes whole warps).  Lane l
+// of the group owns coefficients l, l+W, ..., l+W(K-1) in registers (K =
+// coefficients per lane, a template argument; n <= W*K).  A working set or
+// coefficient mask is a per-lane word whose bit k stands for row l+Wk.  Dot
+// products, max, min and argmax are shuffles within the group (a butterfly
+// over its W lanes), so every scalar below is the same on all its lanes.
 //
-// A Gram lives in shared memory transposed, at a row stride of 32K floats:
-// Gs[j*32K + i] = G[i][j], zero for i >= n.  Lane l then reads
-// Gs[j*32K + l + 32k]: consecutive lanes, consecutive words, no bank
-// conflicts.
+// A Gram lives in shared memory transposed, at a row stride of 32K floats,
+// with its column replicated 32/W times across the row:
+// Gs[j*32K + 32k + l] = G[(l mod W) + Wk][j], zero for rows >= n.  Warp lane
+// l then reads Gs[j*32K + 32k + l]: consecutive lanes, consecutive words, so
+// the groups of a warp, each on its own row j, touch disjoint banks.
+//
+// At W = 32 every piece is the whole-warp code it was before groups came
+// in.  A narrower group gives the same floats, bit for bit: on a whole warp
+// the lanes past n hold the identity of each reduction (exact zeros in the
+// sums and the |b_eff| max, QP_BIG in the ratio min, -QP_BIG at higher
+// indices in the argmax), so a 32-lane butterfly's first steps change
+// nothing and its last are the W-lane butterfly's, in the same order; the
+// matvec walks the nonzeros in ascending index either way.
 //
 // Every helper is force-inlined: the per-lane arrays then stay in registers
 // (a call would pass them through local memory).
@@ -22,41 +33,79 @@
 #define QP_TOL 3e-6f     // prune / add gate, relative to max|b_eff| per voxel
 #define QP_BIG 3.0e38f
 
-__device__ __forceinline__ float warp_sum(float v) {
+// the lanes of one group: W consecutive lanes of a warp
+template <int W>
+struct Lanes {
+  static constexpr unsigned BITS = W == 32 ? FULL : (1u << (W % 32)) - 1u;
+  unsigned gmask;  // the group's lanes in the warp
+  int lane;        // this thread's lane in the group
+  int wlane;       // ... in the warp
+  __device__ __forceinline__ unsigned mask() const {
+    return W == 32 ? FULL : gmask;
+  }
+  __device__ __forceinline__ int warp_lane() const {
+    return W == 32 ? lane : wlane;
+  }
+  // the group's bits of a warp ballot, bit l for group lane l
+  __device__ __forceinline__ unsigned own(unsigned ballot) const {
+    return W == 32 ? ballot : (ballot >> (wlane - lane)) & BITS;
+  }
+};
+
+template <int W>
+__device__ __forceinline__ Lanes<W> lanes_of(int wlane) {
+  const int lane = wlane & (W - 1);
+  return {Lanes<W>::BITS << (W == 32 ? 0 : wlane - lane), lane, wlane};
+}
+
+template <int W>
+__device__ __forceinline__ float group_sum(float v, unsigned gm) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(gm, v, o);
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+template <int W>
+__device__ __forceinline__ float group_max(float v, unsigned gm) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  for (int o = W / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(gm, v, o));
   return v;
 }
 
-__device__ __forceinline__ float warp_min(float v) {
+template <int W>
+__device__ __forceinline__ float group_min(float v, unsigned gm) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  for (int o = W / 2; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(gm, v, o));
   return v;
 }
 
-// warp argmax; among equal maxima the lowest row index wins (jnp.argmax and
-// torch.argmax break ties the same way)
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+// argmax over the group; among equal maxima the lowest row index wins
+// (jnp.argmax and torch.argmax break ties the same way)
+template <int W>
+__device__ __forceinline__ void group_argmax(float& v, int& i, unsigned gm) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float ov = __shfl_xor_sync(FULL, v, o);
-    int oi = __shfl_xor_sync(FULL, i, o);
+  for (int o = W / 2; o > 0; o >>= 1) {
+    float ov = __shfl_xor_sync(gm, v, o);
+    int oi = __shfl_xor_sync(gm, i, o);
     if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
   }
 }
 
-template <int K>
-__device__ __forceinline__ float vdot(const float (&a)[K], const float (&b)[K]) {
+__device__ __forceinline__ float warp_sum(float v) {
+  return group_sum<32>(v, FULL);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  return group_max<32>(v, FULL);
+}
+
+template <int K, int W>
+__device__ __forceinline__ float vdot(const float (&a)[K], const float (&b)[K],
+                                      const Lanes<W>& L) {
   float s = 0.f;
 #pragma unroll
   for (int k = 0; k < K; k++) s += a[k] * b[k];
-  return warp_sum(s);
+  return group_sum<W>(s, L.mask());
 }
 
 // value of row idx of a warp-distributed vector, on every lane
@@ -71,77 +120,79 @@ __device__ __forceinline__ float get_row(const float (&a)[K], int idx) {
 
 __device__ __forceinline__ bool bit(unsigned m, int k) { return (m >> k) & 1u; }
 
-// out = G v, walking only the nonzero entries of v (a warp ballot lists
-// them): one G row read per nonzero
-template <int K>
+// out = G v, walking only the nonzero entries of v (a ballot lists them):
+// one G row read per nonzero
+template <int K, int W>
 __device__ __forceinline__ void gmv(const float* __restrict__ Gs,
                                     const float (&v)[K], float (&out)[K],
-                                    int lane) {
+                                    const Lanes<W>& L) {
 #pragma unroll
   for (int k = 0; k < K; k++) out[k] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < K; kk++) {
-    unsigned nz = __ballot_sync(FULL, v[kk] != 0.f);
+    unsigned nz = L.own(__ballot_sync(L.mask(), v[kk] != 0.f));
     while (nz) {
       int src = __ffs(nz) - 1;
       nz &= nz - 1;
-      float vj = __shfl_sync(FULL, v[kk], src);
-      const float* g = Gs + (src + 32 * kk) * (32 * K) + lane;
+      float vj = __shfl_sync(L.mask(), v[kk], src, W);
+      const float* g = Gs + (src + W * kk) * (32 * K) + L.warp_lane();
 #pragma unroll
       for (int k = 0; k < K; k++) out[k] = fmaf(g[32 * k], vj, out[k]);
     }
   }
 }
 
-template <int K>
+template <int K, int W = 32>
 struct Stage {
   const float* Gs;
   float l2;
   float beff[K];   // (b*cmask - l1)*cmask
-  unsigned cmask;  // bit k: row lane+32k may enter the working set
+  unsigned cmask;  // bit k: row lane+Wk may enter the working set
   float scale;     // max|b_eff| + 1e-30
   float gate;      // tol * scale
+  Lanes<W> L;
 };
 
-template <int K>
-__device__ __forceinline__ void stage_init(Stage<K>& S, const float* Gs,
+template <int K, int W>
+__device__ __forceinline__ void stage_init(Stage<K, W>& S, const float* Gs,
                                            float l1, float l2,
                                            const float (&b)[K],
-                                           unsigned cmask) {
+                                           unsigned cmask, const Lanes<W>& L) {
   S.Gs = Gs;
   S.l2 = l2;
   S.cmask = cmask;
+  S.L = L;
   float amax = 0.f;
 #pragma unroll
   for (int k = 0; k < K; k++) {
     S.beff[k] = bit(cmask, k) ? b[k] - l1 : 0.f;
     amax = fmaxf(amax, fabsf(S.beff[k]));
   }
-  S.scale = warp_max(amax) + 1e-30f;
+  S.scale = group_max<W>(amax, L.mask()) + 1e-30f;
   S.gate = QP_TOL * S.scale;
 }
 
 // masked CG from z0 on the working set m
-template <int K>
-__device__ __forceinline__ void cg(const Stage<K>& S, unsigned m,
+template <int K, int W>
+__device__ __forceinline__ void cg(const Stage<K, W>& S, unsigned m,
                                    const float (&z0)[K], int iters,
-                                   float (&z)[K], int lane) {
+                                   float (&z)[K]) {
   float r[K], p[K], Ap[K];
 #pragma unroll
   for (int k = 0; k < K; k++) z[k] = bit(m, k) ? z0[k] : 0.f;
-  gmv<K>(S.Gs, z, Ap, lane);
+  gmv<K, W>(S.Gs, z, Ap, S.L);
 #pragma unroll
   for (int k = 0; k < K; k++) {
     r[k] = bit(m, k) ? S.beff[k] - (Ap[k] + S.l2 * z[k]) : 0.f;
     p[k] = r[k];
   }
-  float rs = vdot<K>(r, r);
+  float rs = vdot<K, W>(r, r, S.L);
   for (int it = 0; it < iters; it++) {
-    gmv<K>(S.Gs, p, Ap, lane);
+    gmv<K, W>(S.Gs, p, Ap, S.L);
 #pragma unroll
     for (int k = 0; k < K; k++)
       Ap[k] = bit(m, k) ? Ap[k] + S.l2 * p[k] : 0.f;
-    float denom = vdot<K>(p, Ap);
+    float denom = vdot<K, W>(p, Ap, S.L);
     // f32 Grams can carry tiny negative eigenvalues
     bool safe = denom > 1e-30f;
     float alpha = safe ? rs / denom : 0.f;
@@ -150,7 +201,7 @@ __device__ __forceinline__ void cg(const Stage<K>& S, unsigned m,
       z[k] += alpha * p[k];
       r[k] -= alpha * Ap[k];
     }
-    float rs_new = vdot<K>(r, r);
+    float rs_new = vdot<K, W>(r, r, S.L);
     float beta = safe ? rs_new / (rs + 1e-30f) : 0.f;
 #pragma unroll
     for (int k = 0; k < K; k++) p[k] = r[k] + beta * p[k];
@@ -162,18 +213,19 @@ __device__ __forceinline__ void cg(const Stage<K>& S, unsigned m,
 }
 
 // CG on the working set, ratio-test step back, prune
-template <int K>
-__device__ __forceinline__ void inner_solve(const Stage<K>& S, float (&x)[K],
-                                            unsigned& m, int iters, int lane) {
+template <int K, int W>
+__device__ __forceinline__ void inner_solve(const Stage<K, W>& S,
+                                            float (&x)[K], unsigned& m,
+                                            int iters) {
   float z[K];
-  cg<K>(S, m, x, iters, z, lane);
+  cg<K, W>(S, m, x, iters, z);
   // only coordinates with x > 0 bound the step back
   float rmin = QP_BIG;
 #pragma unroll
   for (int k = 0; k < K; k++)
     if (z[k] <= 0.f && bit(m, k) && x[k] > 0.f)
       rmin = fminf(rmin, x[k] / (x[k] - z[k] + 1e-30f));
-  float alpha = fminf(fmaxf(warp_min(rmin), 0.f), 1.f);
+  float alpha = fminf(fmaxf(group_min<W>(rmin, S.L.mask()), 0.f), 1.f);
 #pragma unroll
   for (int k = 0; k < K; k++) {
     float xk = bit(m, k) ? x[k] + alpha * (z[k] - x[k]) : 0.f;
@@ -184,12 +236,13 @@ __device__ __forceinline__ void inner_solve(const Stage<K>& S, float (&x)[K],
 
 // add the most violated atom outside the working set, then up to add_k-1
 // more, each under the same gate; returns whether the first passed it
-template <int K>
-__device__ __forceinline__ bool add_atoms(const Stage<K>& S,
+template <int K, int W>
+__device__ __forceinline__ bool add_atoms(const Stage<K, W>& S,
                                           const float (&x)[K], unsigned& m,
-                                          int add_k, int lane) {
+                                          int add_k) {
+  const int lane = S.L.lane;
   float w[K];
-  gmv<K>(S.Gs, x, w, lane);
+  gmv<K, W>(S.Gs, x, w, S.L);
   const unsigned allowed = S.cmask & ~m;
 #pragma unroll
   for (int k = 0; k < K; k++)
@@ -201,13 +254,13 @@ __device__ __forceinline__ bool add_atoms(const Stage<K>& S,
     bool first = true;
 #pragma unroll
     for (int k = 0; k < K; k++)
-      if (first || w[k] > best) { best = w[k]; bi = lane + 32 * k; first = false; }
-    warp_argmax(best, bi);
+      if (first || w[k] > best) { best = w[k]; bi = lane + W * k; first = false; }
+    group_argmax<W>(best, bi, S.L.mask());
     if (a == 0) added = best > S.gate;
-    if (best > S.gate && (bi & 31) == lane) m |= 1u << (bi >> 5);
+    if (best > S.gate && (bi & (W - 1)) == lane) m |= 1u << (bi / W);
 #pragma unroll
     for (int k = 0; k < K; k++)
-      if (bi == lane + 32 * k) w[k] = -QP_BIG;
+      if (bi == lane + W * k) w[k] = -QP_BIG;
   }
   return added;
 }
@@ -215,12 +268,12 @@ __device__ __forceinline__ bool add_atoms(const Stage<K>& S,
 // one Lawson-Hanson round: inner solve-and-prune passes, then the adds.
 // Returns whether the voxel is stable: its first add failed the gate and
 // its working set is where the round found it.
-template <int K>
-__device__ __forceinline__ bool as_round(const Stage<K>& S, float (&x)[K],
+template <int K, int W>
+__device__ __forceinline__ bool as_round(const Stage<K, W>& S, float (&x)[K],
                                          unsigned& m, int iters, int inner,
-                                         int add_k, int lane) {
+                                         int add_k) {
   const unsigned m_before = m;
-  for (int i = 0; i < inner; i++) inner_solve<K>(S, x, m, iters, lane);
-  const bool added = add_atoms<K>(S, x, m, add_k, lane);
-  return !added && __all_sync(FULL, m == m_before);
+  for (int i = 0; i < inner; i++) inner_solve<K, W>(S, x, m, iters);
+  const bool added = add_atoms<K, W>(S, x, m, add_k);
+  return !added && __all_sync(S.L.mask(), m == m_before);
 }

@@ -62,6 +62,31 @@ DEFAULT_VOXELS_PER_CHUNK = 65536
 DEFAULT_MAX_DEVICE_BYTES = 4 << 30
 
 
+_SECOND_STREAMS: dict = {}
+
+
+def _chunk_streams(device) -> list:
+    """The streams the tile chunks go to, round robin: on a CUDA card the
+    current stream and a second one, so that one chunk's last tiles (the
+    `converge` tail of a tile solve) overlap the next chunk's; else None,
+    for which ``torch.cuda.stream`` changes nothing.  The second waits for
+    what the current one has queued (the uploads and the model's
+    constants); every tensor it reads lives until the fit's synchronize.
+    It is made once a card: the caching allocator keeps a stream's freed
+    blocks for that stream, so a new one each fit would allocate its
+    chunks' memory anew."""
+    if device.type != 'cuda':
+        return [None]
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    current = torch.cuda.current_stream(index)
+    second = _SECOND_STREAMS.get(index)
+    if second is None:
+        second = _SECOND_STREAMS[index] = torch.cuda.Stream(index)
+    second.wait_stream(current)
+    return [current, second]
+
+
 class BaseModel(ABC):
     """Base class for microstructure models (same contract as the JAX
     package's: set / get_params / set_solver / generate / resample / fit)."""
@@ -235,13 +260,16 @@ class BaseModel(ABC):
         t_loop = time.time()
         pending = []
         M, nS = tile_size, y.shape[1]
-        for start, stop, _pad in iter_tile_chunks(plan.n_tiles, chunk_tiles):
+        streams = _chunk_streams(device)
+        chunks = iter_tile_chunks(plan.n_tiles, chunk_tiles)
+        for i, (start, stop, _pad) in enumerate(chunks):
             # the last chunk runs short instead of padded: eager dispatch
             # has no compiled shape to keep
-            idx = perm[start * M:stop * M]
-            Yc = y_ext.index_select(0, idx).view(stop - start, M, nS)
-            pending.append((start, stop, fit_chunk_fn(
-                Yc, dirs_t[start:stop], valid_t[start:stop])))
+            with torch.cuda.stream(streams[i % len(streams)]):
+                idx = perm[start * M:stop * M]
+                Yc = y_ext.index_select(0, idx).view(stop - start, M, nS)
+                pending.append((start, stop, fit_chunk_fn(
+                    Yc, dirs_t[start:stop], valid_t[start:stop])))
         timers['dispatch_s'] = time.time() - t_loop
         timers['n_chunks'] = len(pending)
         if device.type == 'cuda':

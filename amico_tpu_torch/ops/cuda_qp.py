@@ -551,11 +551,58 @@ def _qp_sched_array(sch: StageSchedule) -> np.ndarray:
     return out
 
 
-def _qp_smem_bytes(n: int, M: int) -> int:
-    """csrc/nneg_qp.cu's dynamic shared memory: G at a row stride of 32k
-    floats (k coefficients per lane) and k working-set words per voxel."""
-    k = -(-n // 32)
-    return (n * 32 * k + M * k) * 4
+QP_NWARPS = 32        # csrc/nneg_qp.cu NWARPS: warps a block for n <= 32
+QP_CLUSTER = 2        # csrc/nneg_qp.cu QP_CLUSTER: blocks a tile for n <= 32
+QP_NWARPS_WIDE = 16   # csrc/nneg_qp.cu NWARPS_WIDE: for n > 32, one block
+QP_SMEM_RESERVE = 1024  # csrc/nneg_qp.cu: bytes kept for static arrays
+
+
+@dataclass(frozen=True)
+class QpGeometry:
+    """How ``csrc/nneg_qp.cu`` lays out a launch: a voxel is solved by a
+    group of ``width`` lanes holding ``per_lane`` coefficients each; a
+    tile is a cluster of ``cluster`` blocks of ``warps`` warps, which hold
+    ``groups`` voxels in flight; and each block keeps the tile's per-voxel
+    state in ``smem`` bytes of dynamic shared memory: G, each voxel's
+    working-set and mask words and scale and, by ``state``, its x and
+    b_eff (2), x only (1) or neither (0: x in the output, b_eff recomputed
+    from b each round)."""
+    width: int
+    per_lane: int
+    warps: int
+    cluster: int
+    groups: int
+    state: int
+    smem: int
+
+
+def qp_geometry(n: int, M: int, smem_max: int) -> QpGeometry:
+    """The launch the C entry point makes for n atoms and M voxels a tile
+    on a card whose blocks may take ``smem_max`` bytes of shared memory
+    (it applies the same rule).  Raises ``NotImplementedError`` above
+    QP_MAX_ATOMS atoms and when G and the per-voxel words alone do not
+    fit."""
+    if n < 1:
+        raise ValueError(f'a tile QP needs at least one atom, got {n}')
+    if n > QP_MAX_ATOMS:
+        raise NotImplementedError(f'the kernel takes at most {QP_MAX_ATOMS} '
+                                  f'atoms, got {n} (ROADMAP queue 2, K2)')
+    width = 8 if n <= 8 else 16 if n <= 16 else 32
+    k = -(-n // width)
+    words = n * 32 * k + M * (2 * k + 1)   # G, then words and scales
+    rows = M * n                           # one voxel array (x or b_eff)
+    avail = max(smem_max - QP_SMEM_RESERVE, 0) // 4
+    state = 2 if words + 2 * rows <= avail else \
+        1 if words + rows <= avail else 0
+    if words > avail:
+        raise NotImplementedError(
+            f'the kernel needs {words * 4} bytes of shared memory for {n} '
+            f'atoms and {M} voxels a tile; the card allows {smem_max}')
+    warps, cluster = (QP_NWARPS, QP_CLUSTER) if k == 1 else \
+        (QP_NWARPS_WIDE, 1)
+    return QpGeometry(width, k, warps, cluster,
+                      cluster * warps * 32 // width, state,
+                      (words + state * rows) * 4)
 
 
 def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
@@ -573,9 +620,7 @@ def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
         raise ValueError(f'unsupported device {b.device}')
     _check_qp_inputs(G, b, mask, m0, x0)
     C, M, n = b.shape
-    if n > QP_MAX_ATOMS:
-        raise NotImplementedError(f'the kernel takes at most {QP_MAX_ATOMS} '
-                                  f'atoms, got {n} (ROADMAP queue 2, K2)')
+    qp_geometry(n, M, _max_smem(b.device))
     sched = _qp_sched_array(qp_schedule(n, fista_iters, refine_rounds,
                                         cg_iters, inner_passes, converge,
                                         add_k))
@@ -586,12 +631,6 @@ def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
     for name, t in named[2:4]:
         if t is not None and not bool(((t == 0) | (t == 1)).all()):
             raise ValueError(f'the kernel takes a 0/1 {name}')
-    smem = _qp_smem_bytes(n, M)
-    smem_max = _max_smem(b.device)
-    if smem > smem_max:
-        raise NotImplementedError(
-            f'the kernel needs {smem} bytes of shared memory for {n} atoms '
-            f'and {M} voxels a tile; the card allows {smem_max}')
     x = torch.empty_like(b)
     if C * M > 0:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

@@ -216,13 +216,7 @@ def solve_work(twin, *args, **kwargs):
     makes, ceil(n/32) per nonzero for a full matvec and one per
     working-set slot (a 32-row band holding a working-set row) for a CG
     one.  Returns (the twin's output, a dict of float totals)."""
-    import sys
-
     import torch
-    from .ops import cuda_qp
-    solve_code = cuda_qp._as_solve.__code__
-    mv_code = next(c for c in solve_code.co_consts
-                   if getattr(c, 'co_name', None) == 'mv')
     keys = ('flops', 'matvecs', 'nonzeros', 'rows', 'reads_full',
             'reads_slots')
     acc = {}
@@ -231,31 +225,10 @@ def solve_work(twin, *args, **kwargs):
         t = t.double().sum()
         acc[key] = acc[key] + t if key in acc else t
 
-    matmul = torch.matmul
+    def on_dense(flops):
+        add('flops', torch.tensor(flops))
 
-    def counted(a, b, *rest, **kw):
-        out = matmul(a, b, *rest, **kw)
-        code = sys._getframe(1).f_code
-        if code is mv_code:
-            _count_matvec(a, sys._getframe(2))
-        elif code.co_name in ('_lipschitz', '_fused_raw_torch'):
-            add('flops', torch.tensor(2.0 * out.numel() * a.shape[-1]))
-        return out
-
-    def _count_matvec(v, caller):
-        loc = caller.f_locals
-        name = caller.f_code.co_name
-        rows = {'cg': lambda: loc['m'],
-                'as_round': lambda: (1.0 - loc['m']) * loc['cmask'],
-                '_fista': lambda: loc['cmask']}[name]()
-        run = torch.ones(v.shape[:-1], dtype=v.dtype, device=v.device)
-        f, chain = caller, []
-        while f.f_code is not solve_code:
-            chain.append(f.f_code.co_name)
-            f = f.f_back
-        if 'as_round' in chain and 'done' in f.f_locals:
-            run = run * (~f.f_locals['done']).to(v.dtype).view(
-                (-1,) + (1,) * (v.dim() - 2))
+    def on_matvec(v, rows, name, run):
         nnz = (v != 0).sum(-1).to(v.dtype)
         nrows = (rows > 0).sum(-1).to(v.dtype)
         n = v.shape[-1]
@@ -274,12 +247,155 @@ def solve_work(twin, *args, **kwargs):
         else:
             add('reads_slots', K * nnz * run)
 
-    torch.matmul = counted
-    try:
+    with _TwinMatvecs(on_matvec, on_dense):
         out = twin(*args, **kwargs)
-    finally:
-        torch.matmul = matmul
     return out, {k: float(acc[k]) if k in acc else 0.0 for k in keys}
+
+
+class _TwinMatvecs:
+    """While the block runs, ``torch.matmul`` reports each matvec of the
+    twins' ``_as_solve`` (its ``G v``) as ``on_matvec(v, rows, name, run)``:
+    the vectors v (..., n), the rows the solve needs of the product (a CG
+    step the working set, an add step the allowed rows outside it, a
+    FISTA step every allowed row), the caller's name ('cg', 'as_round',
+    '_fista') and ``run`` (v.shape[:-1]), 1 where the tile still runs (a
+    ``converge`` round runs only on the tiles not done) and 0 elsewhere.
+    The dense products of ``_lipschitz`` and ``_fused_raw_torch`` go to
+    ``on_dense(flops)``."""
+
+    def __init__(self, on_matvec, on_dense=None):
+        self.on_matvec, self.on_dense = on_matvec, on_dense
+
+    def __enter__(self):
+        import sys
+
+        import torch
+        from .ops import cuda_qp
+        solve_code = cuda_qp._as_solve.__code__
+        mv_code = next(c for c in solve_code.co_consts
+                       if getattr(c, 'co_name', None) == 'mv')
+        matmul = self.matmul = torch.matmul
+
+        def counted(a, b, *rest, **kw):
+            out = matmul(a, b, *rest, **kw)
+            code = sys._getframe(1).f_code
+            if code is mv_code:
+                report(a, sys._getframe(2))
+            elif self.on_dense and code.co_name in ('_lipschitz',
+                                                    '_fused_raw_torch'):
+                self.on_dense(2.0 * out.numel() * a.shape[-1])
+            return out
+
+        def report(v, caller):
+            loc = caller.f_locals
+            name = caller.f_code.co_name
+            rows = {'cg': lambda: loc['m'],
+                    'as_round': lambda: (1.0 - loc['m']) * loc['cmask'],
+                    '_fista': lambda: loc['cmask']}[name]()
+            run = torch.ones(v.shape[:-1], dtype=v.dtype, device=v.device)
+            f, chain = caller, []
+            while f.f_code is not solve_code:
+                chain.append(f.f_code.co_name)
+                f = f.f_back
+            if 'as_round' in chain and 'done' in f.f_locals:
+                run = run * (~f.f_locals['done']).to(v.dtype).view(
+                    (-1,) + (1,) * (v.dim() - 2))
+            self.on_matvec(v, rows, name, run)
+
+        torch.matmul = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.matmul = self.matmul
+
+
+TAIL_EXITS = ('off', 'stable', 'xtol', 'cap')
+
+
+def qp_tail(G, b, L=None, lam1=0.0, lam2=0.0, **kw):
+    """Run ``nneg_qp_tiles_torch`` on its inputs (its arguments) and read
+    what each tile's ``converge`` continuation did, the tail that sets a
+    tile QP launch's time.  Per tile (C,):
+
+    - ``rounds``: the continuation rounds the tile ran;
+    - ``exit``: what ended them, an index into ``TAIL_EXITS``: 'stable'
+      (no voxel added an atom or changed its working set in a round; with
+      0 rounds, the schedule's last round did), 'xtol' (x moved by at most
+      tol * the tile's largest max|b_eff|), 'cap' (the round cap, 3 *
+      npad) or 'off' (no continuation in the schedule);
+    - ``matvecs``: the matvecs on a voxel's chain (every voxel of a tile
+      runs as many, one after another);
+    - ``chain_nonzeros``: the tile's longest voxel chain counted in the
+      nonzeros its matvecs walk, one G row read (one shuffle and fma step
+      of the kernel's matvec) each;
+
+    and ``cap``, the schedule's round cap.  It reads the twin as
+    :func:`solve_work` does (``_as_solve``'s locals as the solve runs), so
+    the twin's own arithmetic is what is read.  Returns (x, that dict)."""
+    import sys
+
+    import torch
+    from .ops import cuda_qp
+    solve_code = cuda_qp._as_solve.__code__
+    C, M = b.shape[:2]
+    dev = b.device
+    tail = {'rounds': torch.zeros(C, dtype=torch.int64, device=dev),
+            'exit': torch.zeros(C, dtype=torch.int64, device=dev)}
+    chain = {'matvecs': torch.zeros(C, M, dtype=torch.float64, device=dev),
+             'chain_nonzeros': torch.zeros(C, M, dtype=torch.float64,
+                                           device=dev)}
+    seen = {'done': None}
+
+    def on_matvec(v, rows, name, run):
+        run = run.double()
+        chain['matvecs'] += run
+        chain['chain_nonzeros'] += (v != 0).sum(-1).double() * run
+
+    def local(frame, event, arg):
+        # `done` is bound by the schedule's last round, then rebound after
+        # each continuation round: a new tensor marks a round just run
+        done = frame.f_locals.get('done') if event == 'line' else None
+        prev = seen['done']
+        if done is not None and done is not prev:
+            if prev is None:
+                tail['exit'] = torch.where(done, 1, 3)
+            else:
+                tail['rounds'] += (~prev).long()
+                new = done & ~prev
+                tail['exit'] = torch.where(
+                    new, torch.where(frame.f_locals['st'], 1, 2),
+                    tail['exit'])
+            seen['done'] = done
+        return local
+
+    def glob(frame, event, arg):
+        return local if frame.f_code is solve_code else None
+
+    old = sys.gettrace()
+    sys.settrace(glob)
+    try:
+        with _TwinMatvecs(on_matvec):
+            x = cuda_qp.nneg_qp_tiles_torch(G, b, L, lam1, lam2, **kw)
+    finally:
+        sys.settrace(old)
+    tail.update({k: v.amax(-1) for k, v in chain.items()})
+    sched_kw = {k: v for k, v in kw.items()
+                if k not in ('cd_sweeps', 'mask', 'm0', 'x0')}
+    tail['cap'] = cuda_qp.qp_schedule(b.shape[-1], **sched_kw).cont_rounds
+    return x, tail
+
+
+def tail_histogram(tail) -> dict:
+    """:func:`qp_tail`'s tiles by continuation rounds (0, 1-8, 9 to the cap
+    less one, at the cap) and by exit, as counts."""
+    r, cap = tail['rounds'], tail['cap']
+    bins = {'0': r == 0, '1-8': (r >= 1) & (r <= 8),
+            f'9-{max(cap - 1, 9)}': (r >= 9) & (r < cap),
+            'cap': (r >= cap) & (r > 0)}
+    return {'rounds': {k: int(v.sum()) for k, v in bins.items()},
+            'exit': {name: int((tail['exit'] == i).sum())
+                     for i, name in enumerate(TAIL_EXITS)}}
 
 
 def freewater_voxels(n: int, kernels: dict, htable: np.ndarray,

@@ -1,16 +1,21 @@
-"""Warm NODDI fits of two checkouts of the port, in turns, on one card.
+"""Warm fits of two checkouts of the port, in turns, on one card.
 
     python -m amico_tpu_torch.tools.fit_turns TREE_A TREE_B [--reps N]
+        [--model NODDI|FreeWater|CylinderZeppelinBall] [--backend B]
         [--out FILE]
 
-Writes ``chip_smoke.py``'s NODDI subject once (409,600 voxels, bench.py's
-reference-scale protocol, seed 7), then runs, for each checkout in the
-order A B B A (``--reps`` times over), a fresh process with that checkout
-first on ``sys.path``: ``Evaluation(device='cuda')``, ``load_data`` ->
-``set_model('NODDI')`` -> ``generate_kernels(ndirs=500)`` ->
-``load_kernels``, then three fits.  Each run prints the fits' wall times
-and the tile engine's timers as one JSON line; the first fit pays the
-process's one-time CUDA set-up, the other two are warm.
+Writes ``chip_smoke.py``'s subject of the model once (409,600 voxels,
+seed 7: NODDI and FreeWater Human on bench.py's reference-scale protocol,
+CylinderZeppelinBall on the JAX bench's STEJSKALTANNER one), then runs,
+for each checkout in the order A B B A (``--reps`` times over), a fresh
+process with that checkout first on ``sys.path``:
+``Evaluation(device='cuda')``, ``load_data`` -> ``set_model`` (and
+``set_solver(backend=B)`` when given) -> ``generate_kernels(ndirs=500)``
+-> ``load_kernels``, then three fits.  Each run prints the fits' wall
+times, the tile engine's timers and a digest of the maps as one JSON
+line; the first fit pays the process's one-time CUDA set-up, the other two
+are warm.  The summary gives each checkout's warm fit and device wait and
+whether every fit of both wrote the same maps, bit for bit.
 """
 from __future__ import annotations
 
@@ -24,56 +29,80 @@ import tempfile
 import numpy as np
 
 CHILD = '''
-import json, sys, time
+import hashlib, json, sys, time
 sys.path.insert(0, {tree!r})
+import numpy as np
 import amico_tpu_torch
 amico_tpu_torch.set_verbose(1)
 ev = amico_tpu_torch.Evaluation({study!r}, 'subj', device='cuda')
 ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
-ev.set_model('NODDI')
+ev.set_model({model!r})
+if {backend!r}:
+    ev.set_solver(backend={backend!r})
 ev.generate_kernels(ndirs=500)
 ev.load_kernels()
 fits = []
 for _ in range(3):
     t0 = time.time()
     ev.fit()
-    fits.append(dict(ev.model._last_fit_timers, fit_s=time.time() - t0))
+    maps = np.ascontiguousarray(ev.RESULTS['MAPs'])
+    fits.append(dict(ev.model._last_fit_timers, fit_s=time.time() - t0,
+                     maps=hashlib.sha256(maps.tobytes()).hexdigest()))
 print('RESULT ' + json.dumps({{'tree': {tree!r}, 'fits': fits}}))
 '''
+
+
+def write_subject(model, tmp):
+    """chip_smoke.py's 409,600-voxel subject of ``model`` under tmp/study;
+    returns the study directory."""
+    from amico_tpu_torch.testing import (czb_scheme, czb_voxels, demo_czb,
+                                         demo_freewater, demo_noddi,
+                                         demo_scheme, demo_voxels,
+                                         freewater_voxels, write_demo_subject)
+    scheme = demo_scheme(nb0=9, shells=(700.0, 2000.0), ndir=(30, 60))
+    kdir = os.path.join(tmp, 'k')
+    if model == 'NODDI':
+        _, kernels, htable = demo_noddi(scheme, small=False, kernels_dir=kdir)
+        y = demo_voxels(409_600, kernels, htable, seed=7)[0]
+    elif model == 'FreeWater':
+        _, kernels, htable = demo_freewater(scheme, 'Human', kdir)
+        y = freewater_voxels(409_600, kernels, htable, seed=7)[0]
+    else:
+        scheme = czb_scheme()
+        _, kernels, htable = demo_czb(scheme, kdir)
+        y = czb_voxels(409_600, kernels, htable, seed=7)[0]
+    study = os.path.join(tmp, 'study')
+    write_demo_subject(os.path.join(study, 'subj'), scheme, y, (80, 80, 64))
+    return study
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('trees', nargs=2)
     ap.add_argument('--reps', type=int, default=2)
+    ap.add_argument('--model', default='NODDI',
+                    choices=('NODDI', 'FreeWater', 'CylinderZeppelinBall'))
+    ap.add_argument('--backend', default='')
     ap.add_argument('--out')
     a = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('fit_turns needs a CUDA card')
     from amico_tpu_torch import set_verbose
-    from amico_tpu_torch.testing import (demo_noddi, demo_scheme,
-                                         demo_voxels, write_demo_subject)
     set_verbose(1)
     trees = [os.path.abspath(t) for t in a.trees]
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         home = os.path.join(tmp, 'home')
         os.environ['AMICO_TPU_HOME'] = home
-        scheme = demo_scheme(nb0=9, shells=(700.0, 2000.0), ndir=(30, 60))
-        _, kernels, htable = demo_noddi(scheme, small=False,
-                                        kernels_dir=os.path.join(tmp, 'k'))
-        y, _, _ = demo_voxels(409_600, kernels, htable, seed=7)
-        study = os.path.join(tmp, 'study')
-        write_demo_subject(os.path.join(study, 'subj'), scheme, y,
-                           (80, 80, 64))
-        del y
+        study = write_subject(a.model, tmp)
         env = dict(os.environ, AMICO_TPU_HOME=home)
         for _ in range(a.reps):
             for tree in trees + trees[::-1]:
                 proc = subprocess.run(
-                    [sys.executable, '-c', CHILD.format(tree=tree,
-                                                        study=study)],
+                    [sys.executable, '-c', CHILD.format(
+                        tree=tree, study=study, model=a.model,
+                        backend=a.backend)],
                     cwd=tree, env=env, capture_output=True, text=True,
                     timeout=600)
                 lines = [ln for ln in proc.stdout.splitlines()
@@ -91,7 +120,11 @@ def main(argv=None):
                for f in r['fits'][1:]]
         print(f'{tree}: warm fit median {np.median(warm):.3f} s '
               f'(readings {[round(w, 3) for w in warm]}); device wait '
-              f'median {np.median(dev):.4f} s', flush=True)
+              f'median {np.median(dev):.4f} s (readings '
+              f'{[round(d, 4) for d in dev]})', flush=True)
+    digests = {f['maps'] for r in runs for f in r['fits']}
+    print(f'{a.model}: the same maps in every fit of both checkouts: '
+          f'{len(digests) == 1}', flush=True)
     if a.out:
         with open(a.out, 'w') as f:
             json.dump(runs, f, indent=1)

@@ -3,21 +3,24 @@ side on one card, and the host pieces of a ctypes launch (T1's path).
 
     python -m amico_tpu_torch.tools.kernel_bench \\
         [--variant LABEL=CSRC_DIR[:NVCC_FLAGS]]... [--ptxas] [--reps N] \\
-        [--count] [--t1] [--out FILE]
+        [--count] [--tail] [--t1] [--out FILE]
 
 Each variant compiles ``noddi_fused.cu``, ``nneg_qp.cu`` and ``runtime.cu``
 of CSRC_DIR (nvcc, sm_90a, plus NVCC_FLAGS, space separated, such as
 ``-DNWARPS=32``) into a library of its own under ``build/kernel_bench/``;
 ``--ptxas`` prints what ``-Xptxas -v`` says of each.  The first variant is
-the reference.  On ``chip_smoke.py``'s phase-3 inputs (3,200 tiles of the
+the reference. On ``chip_smoke.py``'s phase-3 inputs (3,200 tiles of the
 full NODDI grid, in vivo and exvivo, in launches of 512 tiles) each
 variant's K1 estimates and coefficients, and on its phase-5 inputs
-(FreeWater Human and Mouse, 3,200 tiles; the random n = 21 problems under
-the dense schedule, 512 tiles) and on random n = 150 problems its K2
-solution, are compared with the reference's by ``torch.equal``.  K1 (the
-first 512-tile launch, in vivo) and K2 (FreeWater Human, the same) are
-timed with CUDA events, the variants in turns: A B ... B A, ``--reps``
-times over.
+(FreeWater Human and Mouse, 3,200 tiles; the random n = 21 problems
+under the dense schedule, 512 tiles), on random n = 150 problems and n =
+160 problems of 256 voxels a tile, on phase 9's 512 CylinderZeppelinBall
+tiles (n = 26) and on the lane-group edges (random problems at n = 8, 9,
+16, 17 and M = 1, 7, 33, 129, plain, with a mask and with a warm start)
+its K2 solution, are compared with the reference's by ``torch.equal``.
+K1 (the first 512-tile launch, in vivo) and K2 (the first 512-tile
+launch of FreeWater Human, Mouse and CZB) are timed with CUDA events,
+the variants in turns: A B ... B A, ``--reps`` times over.
 
 A CSRC_DIR whose ``noddi_fused.cu`` takes a scratch buffer (this tree's)
 gets the stage-2 dictionary in (ndwi, n_wm) layout; an older one gets it
@@ -25,6 +28,10 @@ transposed, as it did then.
 
 ``--count`` counts the work K1 and K2 need on these inputs
 (:func:`amico_tpu_torch.testing.solve_work` on the first launch of each).
+``--tail`` reads K2's ``converge`` tail on each K2 input
+(:func:`amico_tpu_torch.testing.qp_tail`: continuation rounds and exits a
+tile, the longest voxel chain) and times the variants on the same timed
+launches without ``converge`` too.
 ``--t1`` times each host piece of a ctypes launch 10,000 times with a host
 clock, and T1, ``torch.add(1, x, alpha=2)`` and T1's twin at (8, 128) and
 1,000,003 floats in turns with CUDA events.
@@ -104,13 +111,14 @@ class Variant:
             raise RuntimeError(f'[{self.label}] K1 launch failed: {err}')
         return est, x
 
-    def k2(self, G, b, lam2, sched):
+    def k2(self, G, b, lam2, sched, mask=None, m0=None, x0=None):
         import torch
         C, M, n = b.shape
         x = torch.empty_like(b)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         err = self.lib.nneg_qp_launch(
-            G.data_ptr(), b.data_ptr(), None, None, None, x.data_ptr(), C,
-            M, n, 0.0, lam2, sched.ctypes.data,
+            G.data_ptr(), b.data_ptr(), ptr(mask), ptr(m0), ptr(x0),
+            x.data_ptr(), C, M, n, 0.0, lam2, sched.ctypes.data,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f'[{self.label}] K2 launch failed: {err}')
@@ -158,22 +166,60 @@ def k1_inputs(tmp):
 
 
 def k2_inputs(tmp):
+    """(name, G, b, lam2, solver kwargs, extra inputs) of each K2 case."""
     import torch
     from amico_tpu_torch.models.base import DEFAULT_AS_SOLVER_KW, \
         DENSE_AS_SOLVER_KW
-    from amico_tpu_torch.testing import demo_freewater, demo_scheme, \
-        freewater_tile_inputs, random_qp_problems
+    from amico_tpu_torch.testing import czb_scheme, czb_tile_inputs, \
+        demo_czb, demo_freewater, demo_scheme, freewater_tile_inputs, \
+        random_qp_problems
     scheme = demo_scheme(**PROTOCOL)
     for typ in ('Human', 'Mouse'):
         model, kernels, htable = demo_freewater(scheme, typ,
                                                 os.path.join(tmp, typ))
         G, b = freewater_tile_inputs(model, kernels, htable, 'cuda', N_TILES,
                                      seed=1)
-        yield typ, G, b, 1e-3, DEFAULT_AS_SOLVER_KW
-    for name, C, n in (('dense', STEP, 21), ('n150', 64, 150)):
-        G, b = random_qp_problems(C, n, seed=0)
+        yield typ, G, b, 1e-3, DEFAULT_AS_SOLVER_KW, {}
+    # n = 150 keeps x but not b_eff in shared memory on an H100, n = 160 at
+    # 256 voxels a tile neither (ops/cuda_qp.py:qp_geometry)
+    for name, C, n, M in (('dense', STEP, 21, 128), ('n150', 64, 150, 128),
+                          ('n160-M256', 16, 160, 256)):
+        G, b = random_qp_problems(C, n, M=M, seed=0)
         yield name, torch.from_numpy(G).cuda(), torch.from_numpy(b).cuda(), \
-            4.0, DENSE_AS_SOLVER_KW
+            4.0, DENSE_AS_SOLVER_KW, {}
+    model, kernels, htable = demo_czb(czb_scheme(), os.path.join(tmp, 'czb'))
+    G, b, _ = czb_tile_inputs(model, kernels, htable, 'cuda', STEP, seed=1)
+    yield 'czb', G, b, 4.0, DENSE_AS_SOLVER_KW, {}
+    yield from edge_inputs()
+
+
+EDGE_WARM = dict(fista_iters=0, refine_rounds=3, cg_iters=(3, 5),
+                 converge=True)
+
+
+def edge_inputs(C=33):
+    """The lane groups' edges: random problems at n = 8, 9, 16, 17 (one
+    group width's last n and the next one's first) and M = 1, 7, 33, 129
+    voxels a tile, plain under the default schedule, with a 0/1 mask, and
+    with a warm start (m0, x0) under a short schedule with `converge`."""
+    import numpy as np
+    import torch
+    from amico_tpu_torch.models.base import DEFAULT_AS_SOLVER_KW
+    from amico_tpu_torch.testing import random_qp_problems
+    for n in (8, 9, 16, 17):
+        for M in (1, 7, 33, 129):
+            G, b = (torch.from_numpy(a).cuda() for a in random_qp_problems(
+                C, n, M=M, seed=n * 1000 + M))
+            rng = np.random.RandomState(n + M)
+            mask = (rng.rand(*b.shape) > 0.4).astype(np.float32)
+            m0 = (rng.rand(*b.shape) > 0.6).astype(np.float32)
+            x0 = (rng.rand(*b.shape) * 0.1).astype(np.float32)
+            on = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+            yield f'edge-n{n}-M{M}', G, b, 1e-3, DEFAULT_AS_SOLVER_KW, {}
+            yield f'edge-n{n}-M{M}-mask', G, b, 1e-3, DEFAULT_AS_SOLVER_KW, \
+                {'mask': on(mask)}
+            yield f'edge-n{n}-M{M}-warm', G, b, 1e-3, EDGE_WARM, \
+                {'m0': on(m0), 'x0': on(x0)}
 
 
 def chunks(args):
@@ -181,11 +227,17 @@ def chunks(args):
         yield [a[i:i + STEP] if a.dim() == 3 else a for a in args]
 
 
-def bench_kernels(variants, reps, count, tmp, record):
+def qp_sched(n, kw):
+    from amico_tpu_torch.ops import cuda_qp
+    return cuda_qp._qp_sched_array(cuda_qp.qp_schedule(n, **{
+        k: v for k, v in kw.items() if k != 'cd_sweeps'}))
+
+
+def bench_kernels(variants, reps, count, tail, tmp, record):
     import torch
     from amico_tpu_torch.models.base import DEFAULT_NODDI_STAGE_ITERS
     from amico_tpu_torch.ops import cuda_qp
-    from amico_tpu_torch.testing import solve_work
+    from amico_tpu_torch.testing import qp_tail, solve_work, tail_histogram
     sched = cuda_qp._sched_array(cuda_qp.noddi_schedules(
         DEFAULT_NODDI_STAGE_ITERS))
     ref = variants[0]
@@ -219,11 +271,11 @@ def bench_kernels(variants, reps, count, tmp, record):
             log(f'K1 work, exvivo={exvivo}, first launch: {json.dumps(w)}')
             record[f'k1_work_exvivo={exvivo}'] = w
         del args, outs
-    for name, G, b, lam2, kw in k2_inputs(tmp):
-        s = cuda_qp._qp_sched_array(cuda_qp.qp_schedule(b.shape[-1], **{
-            k: v for k, v in kw.items() if k != 'cd_sweeps'}))
+    for name, G, b, lam2, kw, extra in k2_inputs(tmp):
+        s = qp_sched(b.shape[-1], kw)
         outs = {v.label: torch.cat([v.k2(G[i:i + STEP], b[i:i + STEP], lam2,
-                                         s)
+                                         s, **{k: t[i:i + STEP]
+                                               for k, t in extra.items()})
                                     for i in range(0, G.shape[0], STEP)])
                 for v in variants}
         torch.cuda.synchronize()
@@ -232,14 +284,32 @@ def bench_kernels(variants, reps, count, tmp, record):
             log(f'K2 {name}: {v.label} vs {ref.label}: x equal {same} '
                 f'(differing {int((outs[v.label] != outs[ref.label]).sum())})')
             record.setdefault('k2_equal', {})[f'{v.label}/{name}'] = same
-        if name == 'Human':
+        del outs
+        if tail and not name.startswith('edge'):
+            _, t = qp_tail(G, b, None, 0.0, lam2, **kw)
+            h = tail_histogram(t)
+            mv, nz = t['matvecs'], t['chain_nonzeros']
+            log(f'K2 tail {name} ({G.shape[0]} tiles, n = {b.shape[-1]}, cap '
+                f'{t["cap"]}): rounds {h["rounds"]}, exits {h["exit"]}; '
+                f'chain matvecs median {float(mv.median()):.0f} max '
+                f'{float(mv.max()):.0f}, chain nonzeros median '
+                f'{float(nz.median()):.0f} max {float(nz.max()):.0f}')
+            record[f'k2_tail_{name}'] = dict(h, chain_matvecs_max=float(
+                mv.max()), chain_nonzeros_max=float(nz.max()))
+        if name in ('Human', 'Mouse', 'czb'):
             first = (G[:STEP].contiguous(), b[:STEP].contiguous())
-            times = in_turns({v.label: (lambda v=v: v.k2(*first, lam2, s))
-                              for v in variants}, reps, 5)
+            fns = {v.label: (lambda v=v: v.k2(*first, lam2, s))
+                   for v in variants}
+            if tail:
+                s_nc = qp_sched(b.shape[-1], dict(kw, converge=False))
+                fns.update({f'{v.label} no-converge':
+                            (lambda v=v: v.k2(*first, lam2, s_nc))
+                            for v in variants})
+            times = in_turns(fns, reps, 5)
             for k, t in times.items():
-                log(f'K2 Human {k}: {np.median(t):.3f} ms median per '
+                log(f'K2 {name} {k}: {np.median(t):.3f} ms median per '
                     f'512-tile launch (readings {[round(x, 3) for x in t]})')
-            record['k2_ms'] = times
+            record[f'k2_ms_{name}'] = times
         if count and name in ('Human', 'dense'):
             _, w = solve_work(cuda_qp.nneg_qp_tiles_torch, G[:STEP],
                               b[:STEP], None, 0.0, lam2, **kw)
@@ -319,6 +389,7 @@ def main(argv=None):
     ap.add_argument('--ptxas', action='store_true')
     ap.add_argument('--reps', type=int, default=2)
     ap.add_argument('--count', action='store_true')
+    ap.add_argument('--tail', action='store_true')
     ap.add_argument('--t1', action='store_true')
     ap.add_argument('--out')
     a = ap.parse_args(argv)
@@ -341,7 +412,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         os.environ['AMICO_TPU_HOME'] = os.path.join(tmp, 'home')
         if variants:
-            bench_kernels(variants, a.reps, a.count, tmp, record)
+            bench_kernels(variants, a.reps, a.count, a.tail, tmp, record)
         if a.t1:
             bench_t1(record)
     if a.out:

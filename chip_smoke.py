@@ -24,6 +24,11 @@ Phases; any failure exits non-zero and prints no result line:
    active-set schedule with `converge`) by maps and objective, and
    tests/test_pallas_qp.py's random problems (n = 21, lambda2 = 4, 512
    tiles) under the dense schedule, so FISTA and the flat budget run too;
+   for each, the `converge` tail (``testing.qp_tail`` on the twin's run:
+   tiles by continuation rounds and by what ended them) and the kernel's
+   time with and without `converge`; then the kernel against the twin at
+   the kernel's lane-group edges (n = 8, 9, 16, 17 at 1, 7, 33 and 129
+   voxels a tile; plain, masked and warm-started);
 6. FreeWater main path: a 409,600-voxel FreeWater subject (same volume
    and protocol) through Evaluation(device='cuda') with
    doSaveCorrectedDWI, load_data -> save_results, with the tile QP's
@@ -45,7 +50,7 @@ Phases; any failure exits non-zero and prints no result line:
 9. the same subject with backend='pallas' (K2 at n = 26): its launch
    count, its maps against the stagewise run's, and K2, its twin and the
    stagewise solver on 512 CZB tiles (agreement by maps and objective,
-   times);
+   times, the `converge` tail);
 10. NODDI with backend='xla' (the stagewise solve) on phase 4's subject:
    its maps against the fused path's by distribution, and the oracle audit
    at phase 4's bounds.
@@ -113,6 +118,10 @@ AUDIT_MEDIAN, AUDIT_P95, AUDIT_MAX = 5e-5, 5e-3, 5e-2
 QP_BOUNDS = {'Human': (1e-5, 1e-3, 5e-3), 'Mouse': (3e-5, 5e-3, 2e-2),
              'dense': (1e-5, 2e-4, 2e-4)}
 QP_OBJ_P99, QP_OBJ_WORSE = 1e-3, 1e-3
+# the tile QP at its lane-group edges against the twin on random problems:
+# x as tests/test_pallas_qp.py holds the Pallas kernel to the XLA solver
+# (atol 2e-4, rtol 1e-3), the objective within 1e-4 relative
+QP_EDGE_ATOL, QP_EDGE_RTOL, QP_EDGE_OBJ = 2e-4, 1e-3, 1e-4
 # FreeWater's DTI directions against the true ones, on voxels whose weight
 # lies mostly (> 0.5) on the zeppelins with d_perp < d_par (the last Human
 # zeppelin and the ball have no direction): 0.999864 agree on the 36,720
@@ -351,6 +360,78 @@ def phase_main_path(study, lut_true):
     return launches, maps.astype(np.float64)
 
 
+def log_tail(name, tails, timed):
+    """Print the `converge` tail of :func:`testing.qp_tail`'s per-launch
+    readings ``tails`` and the kernel's ms per launch with and without
+    `converge` (``timed``: two zero-argument calls)."""
+    import torch
+    from amico_tpu_torch.testing import tail_histogram
+    t = {k: torch.cat([x[k] for x in tails]) for k in ('rounds', 'exit',
+                                                        'matvecs',
+                                                        'chain_nonzeros')}
+    t['cap'] = tails[0]['cap']
+    h = tail_histogram(t)
+    ms, ms_off = (cuda_ms(fn, 5) for fn in timed)
+    mv, nz = t['matvecs'], t['chain_nonzeros']
+    log(f'tile QP tail ({name}, {mv.numel()} tiles, round cap {t["cap"]}): '
+        f'tiles by continuation rounds {h["rounds"]}, by exit {h["exit"]}; '
+        f'longest voxel chain a tile: median {float(mv.median()):.0f} '
+        f'matvecs ({float(nz.median()):.0f} nonzeros), max '
+        f'{float(mv.max()):.0f} ({float(nz.max()):.0f}); kernel {ms:.3f} ms, '
+        f'{ms_off:.3f} ms without `converge` per launch (tail share '
+        f'{1 - ms_off / ms:.1%})')
+    check(sum(h['rounds'].values()) == mv.numel(), f'tail of {name} lost tiles')
+
+
+def phase_qp_edges():
+    """The tile QP kernel against its twin at the kernel's lane-group edges:
+    one group width's last n and the next one's first, at ragged voxel
+    counts a tile, plain, masked and warm-started within the groups."""
+    import torch
+    from amico_tpu_torch.models.base import DEFAULT_AS_SOLVER_KW
+    from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, nneg_qp_tiles_torch
+    from amico_tpu_torch.testing import qp_agreement, random_qp_problems
+    warm_kw = dict(fista_iters=0, refine_rounds=3, cg_iters=(3, 5),
+                   converge=True)
+    worst, cases = 0.0, 0
+    for n in (8, 9, 16, 17):
+        for M in (1, 7, 33, 129):
+            G, b = (torch.from_numpy(a).cuda() for a in random_qp_problems(
+                33, n, M=M, seed=n * 1000 + M))
+            rng = np.random.RandomState(n + M)
+            on = lambda a: torch.from_numpy(  # noqa: E731
+                a.astype(np.float32)).cuda()
+            for extra, inputs, kw in (
+                    ('plain', {}, DEFAULT_AS_SOLVER_KW),
+                    ('mask', {'mask': on(rng.rand(*b.shape) > 0.4)},
+                     DEFAULT_AS_SOLVER_KW),
+                    ('warm', {'m0': on(rng.rand(*b.shape) > 0.6),
+                              'x0': on(rng.rand(*b.shape) * 0.1)}, warm_kw)):
+                x_k = nneg_qp_tiles(G, b, None, 0.0, 1e-3, **inputs, **kw)
+                x_t = nneg_qp_tiles_torch(G, b, None, 0.0, 1e-3, **inputs,
+                                          **kw)
+                torch.cuda.synchronize()
+                a = qp_agreement(G, b, 0.0, 1e-3, x_k, x_t)
+                err = (x_k - x_t).abs() - QP_EDGE_RTOL * x_t.abs()
+                check(bool(torch.isfinite(x_k).all() and (x_k >= 0).all()),
+                      f'tile QP output not finite and >= 0 (n = {n}, M = {M}'
+                      f', {extra})')
+                check(float(err.max()) <= QP_EDGE_ATOL
+                      and a['obj_gap_max'] < QP_EDGE_OBJ
+                      and ('mask' not in inputs or bool(
+                          (x_k[inputs['mask'] == 0] == 0).all())),
+                      f'tile QP disagrees with its twin at n = {n}, M = {M} '
+                      f'({extra}): {a}')
+                worst = max(worst, a['x_max'])
+                cases += 1
+    log(f'tile QP vs twin at the lane-group edges ({cases} cases of 33 '
+        f'tiles: n = 8, 9, 16, 17; 1, 7, 33, 129 voxels a tile; plain, '
+        f'masked, warm-started): x max {worst:.3g}, all within atol '
+        f'{QP_EDGE_ATOL} + rtol {QP_EDGE_RTOL}, objective within '
+        f'{QP_EDGE_OBJ}')
+    return worst
+
+
 def phase_qp_vs_twin(scheme, tmp):
     """The tile QP kernel against its twin; returns the worst compared
     error and the kernel's and twin's ms per launch of the main path's
@@ -364,12 +445,19 @@ def phase_qp_vs_twin(scheme, tmp):
     from functools import partial
     from amico_tpu_torch.testing import (demo_freewater, freewater_maps,
                                          freewater_tile_inputs, qp_agreement,
-                                         random_qp_problems, solve_work)
+                                         qp_tail, random_qp_problems,
+                                         solve_work)
     step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
 
     def run(fn, G, b, lam2, kw):
         return torch.cat([fn(G[i:i + step], b[i:i + step], None, 0.0, lam2,
                              **kw) for i in range(0, G.shape[0], step)])
+
+    def run_twin(G, b, lam2, kw):
+        # the twin in the main path's launches, read by qp_tail as it runs
+        out = [qp_tail(G[i:i + step], b[i:i + step], None, 0.0, lam2, **kw)
+               for i in range(0, G.shape[0], step)]
+        return torch.cat([x for x, _ in out]), [t for _, t in out]
 
     def cases():
         for typ in ('Human', 'Mouse'):
@@ -385,7 +473,7 @@ def phase_qp_vs_twin(scheme, tmp):
     worst, times = 0.0, None
     for name, G, b, lam2, kw, n_perp in cases():
         x_k = run(nneg_qp_tiles, G, b, lam2, kw)
-        x_t = run(nneg_qp_tiles_torch, G, b, lam2, kw)
+        x_t, tails = run_twin(G, b, lam2, kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(x_k).all() and (x_k >= 0).all()),
               f'tile QP kernel output not finite and >= 0 ({name})')
@@ -410,6 +498,10 @@ def phase_qp_vs_twin(scheme, tmp):
               and a['obj_share_worse'] < QP_OBJ_WORSE,
               f'tile QP kernel disagrees with its twin ({name})')
         worst = max(worst, a[key + '_max'])
+        kw_off = dict(kw, converge=False)
+        log_tail(name, tails, (
+            lambda: nneg_qp_tiles(*first, None, 0.0, lam2, **kw),
+            lambda: nneg_qp_tiles(*first, None, 0.0, lam2, **kw_off)))
         if name == 'Human':
             _, work = solve_work(nneg_qp_tiles_torch, *first, None, 0.0,
                                  lam2, **kw)
@@ -422,7 +514,7 @@ def phase_qp_vs_twin(scheme, tmp):
                 f'voxel): bound {bd[0]:.4f} ms ({bd[1]}), '
                 f'{bd[0] / ms:.2%} of it reached')
         del G, b, x_k, x_t
-    return worst, times
+    return max(worst, phase_qp_edges()), times
 
 
 def phase_fw_main_path(study, lut_true, aniso):
@@ -635,7 +727,7 @@ def phase_czb_pallas(ev, maps_auto):
                                              noddi_fused_tiles)
     from amico_tpu_torch.ops.loc_probe import loc_probe
     from amico_tpu_torch.ops.solvers import nneg_qp_batch
-    from amico_tpu_torch.testing import czb_tile_inputs, qp_agreement
+    from amico_tpu_torch.testing import czb_tile_inputs, qp_agreement, qp_tail
     n_vox = maps_auto.shape[0]
     nneg_qp_tiles.launches = noddi_fused_tiles.launches = 0
     loc_probe.launches = 0
@@ -677,7 +769,7 @@ def phase_czb_pallas(ev, maps_auto):
         return nneg_qp_batch(G[:, None], b, 0.0, 4.0, L=L[:, None], **kw)
 
     x_k = nneg_qp_tiles(G, b, None, 0.0, 4.0, **kw)
-    x_t = nneg_qp_tiles_torch(G, b, None, 0.0, 4.0, **kw)
+    x_t, tail = qp_tail(G, b, None, 0.0, 4.0, **kw)
     x_s = stagewise()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(x_k).all() and (x_k >= 0).all()),
@@ -707,6 +799,10 @@ def phase_czb_pallas(ev, maps_auto):
     log(f'CZB tiles ({step} x 128 voxels, n = 26): K2 {times["k2"]:.3f} ms, '
         f'twin {times["twin"]:.3f} ms, stagewise {times["stagewise"]:.3f} ms '
         'per call (CUDA events)')
+    kw_off = dict(kw, converge=False)
+    log_tail('CZB', [tail], (
+        lambda: nneg_qp_tiles(G, b, None, 0.0, 4.0, **kw),
+        lambda: nneg_qp_tiles(G, b, None, 0.0, 4.0, **kw_off)))
 
 
 def phase_noddi_xla(study, maps_fused):

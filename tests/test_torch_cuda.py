@@ -312,6 +312,52 @@ def test_nneg_qp_kernel_semantics(cuda, case):
         torch.testing.assert_close(x_k, x_t, atol=2e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize('n,M,extra', [
+    (n, M, extra) for n in (8, 9, 16, 17) for M in (1, 7, 33)
+    for extra in (None, 'mask', 'warm')])
+def test_nneg_qp_kernel_at_lane_group_edges(cuda, n, M, extra):
+    """The kernel's lane-group edges (8 lanes a voxel up to n = 8, 16 up to
+    16, a warp above) at ragged voxel counts, plain under the default
+    schedule, with a mask, and with a warm start under a short schedule
+    with `converge`: the kernel against the twin, both on the card, x
+    within 2e-4 (+1e-3 relative) and the objective within 1e-4 relative,
+    as test_nneg_qp_kernel_semantics."""
+    from amico_tpu_torch.testing import qp_agreement
+    G, b = qp_problems(5, n, M=M, seed=n + M)
+    rng = np.random.RandomState(n * M)
+    on = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa
+    inputs, kw = {}, DEFAULT_AS_SOLVER_KW
+    if extra == 'mask':
+        inputs['mask'] = on(rng.rand(*b.shape) > 0.4)
+    if extra == 'warm':
+        inputs['m0'] = on(rng.rand(*b.shape) > 0.6)
+        inputs['x0'] = on(rng.rand(*b.shape) * 0.1)
+        kw = dict(fista_iters=0, refine_rounds=3, cg_iters=(3, 5),
+                  converge=True)
+    x_k = nneg_qp_tiles(G, b, None, 0.0, 1e-3, **inputs, **kw)
+    x_t = nneg_qp_tiles_torch(G, b, None, 0.0, 1e-3, **inputs, **kw)
+    torch.cuda.synchronize()
+    if 'mask' in inputs:
+        assert bool((x_k[inputs['mask'] == 0] == 0).all())
+    assert qp_agreement(G, b, 0.0, 1e-3, x_k, x_t)['obj_gap_max'] < 1e-4
+    torch.testing.assert_close(x_k, x_t, atol=2e-4, rtol=1e-3)
+
+
+def test_nneg_qp_kernel_without_room_for_its_state(cuda):
+    """At 160 atoms and 256 voxels a tile neither x nor b_eff fits beside G
+    in shared memory: x stays in the output and b_eff is rebuilt from b
+    each round (ops/cuda_qp.py:qp_geometry)."""
+    from amico_tpu_torch.testing import qp_agreement
+    G, b = qp_problems(3, 160, M=256, seed=2)
+    assert cuda_qp.qp_geometry(160, 256, cuda_qp._max_smem(b.device)).state \
+        == 0
+    x_k = nneg_qp_tiles(G, b, None, 0.0, 4.0, **DENSE_AS_SOLVER_KW)
+    x_t = nneg_qp_tiles_torch(G, b, None, 0.0, 4.0, **DENSE_AS_SOLVER_KW)
+    torch.cuda.synchronize()
+    assert qp_agreement(G, b, 0.0, 4.0, x_k, x_t)['obj_gap_max'] < 1e-4
+    torch.testing.assert_close(x_k, x_t, atol=2e-4, rtol=1e-3)
+
+
 def test_nneg_qp_launch_counter(cuda):
     G, b = qp_problems(2, 11, M=16)
     before = nneg_qp_tiles.launches
@@ -360,6 +406,30 @@ def test_freewater_fit_on_cuda_launches_the_kernel(freewater):
     assert ((est >= 0) & (est <= 1)).all()
     assert res['y_corrected'].shape == y.shape
     assert (res['y_corrected'] >= 0).all()
+
+
+def test_fit_chunks_on_two_streams_match_one(freewater, monkeypatch):
+    """The tile driver sends its chunks round robin to two CUDA streams;
+    on one stream the same fit writes the same maps, bit for bit."""
+    from amico_tpu_torch.models import base
+    from amico_tpu_torch.testing import freewater_voxels
+    model, kernels, htable = freewater['Human']
+    y, DIRs, _, _ = freewater_voxels(6000, kernels, htable, seed=4)
+
+    class Ctx:
+        def __init__(s):
+            s.y, s.DIRs, s.htable, s.KERNELS = y, DIRs, htable, kernels
+
+        def get_config(s, k):
+            # 1,024-voxel chunks: several chunks on each stream
+            return {'device': 'cuda', 'voxels_per_chunk': 1024}.get(k)
+
+    assert len(base._chunk_streams(torch.device('cuda'))) == 2
+    two = model.fit(Ctx())
+    assert model._last_fit_timers['n_chunks'] >= 4
+    monkeypatch.setattr(base, '_chunk_streams', lambda device: [None])
+    one = model.fit(Ctx())
+    assert np.array_equal(two['estimates'], one['estimates'])
 
 
 # --------------------------------------------------- T1: build-cache probe

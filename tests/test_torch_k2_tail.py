@@ -1,0 +1,185 @@
+"""K2's ``converge`` tail and its launch geometry, on the CPU.
+
+The tile QP (amico_tpu_torch.ops.cuda_qp) continues each tile's rounds until
+the whole tile is done, so a tile's time is that of its slowest voxel chain.
+Here: the twin's result does not depend on the order of a tile's voxels (the
+kernel maps voxels to lane groups by position and relies on it),
+``testing.qp_tail`` reads rounds and exits as the schedule implies, and
+``cuda_qp.qp_geometry`` describes the launch that csrc/nneg_qp.cu makes."""
+import numpy as np
+import pytest
+import torch
+
+from amico_tpu_torch.models.base import (DEFAULT_AS_SOLVER_KW,
+                                         DENSE_AS_SOLVER_KW)
+from amico_tpu_torch.ops import cuda_qp
+from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles_torch
+from amico_tpu_torch.testing import (TAIL_EXITS, qp_tail, random_qp_problems,
+                                     solve_work, tail_histogram)
+
+torch.set_num_threads(1)
+
+INEXACT = dict(fista_iters=0, refine_rounds=1, cg_iters=2, converge=2)
+H100_SMEM = 232_448      # an H100's shared memory a block may opt into
+
+
+def collinear_problems(C, n, M=128, eps=1e-2, seed=0):
+    """Tile QPs whose atoms come in near-collinear pairs (the second half
+    of the dictionary is the first half plus eps noise), as FreeWater's
+    adjacent zeppelins are: working sets churn between the pair members,
+    and the continuation runs long.  Returns torch float32 G (C, n, n) and
+    b (C, M, n)."""
+    rng = np.random.RandomState(seed)
+    base = np.abs(rng.randn(C, 60, (n + 1) // 2))
+    A = np.concatenate([base, base[:, :, :n // 2]
+                        + eps * rng.randn(C, 60, n // 2)], -1)
+    y = np.einsum('cmk,cvk->cvm', A, rng.rand(C, M, n) ** 3) \
+        + 0.01 * rng.randn(C, M, 60)
+    G = np.einsum('cmi,cmj->cij', A, A).astype(np.float32)
+    b = np.einsum('cmi,cvm->cvi', A, y).astype(np.float32)
+    return torch.from_numpy(G), torch.from_numpy(b)
+
+
+def dense_solution_problems(C=2, n=11, M=16, seed=3):
+    """Well-conditioned tile QPs whose solution uses every atom:
+    G = A'A/40 + I, b = G x* with x* in [0.5, 1.5]."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(C, 40, n)
+    G = (np.einsum('cki,ckj->cij', A, A) / 40 + np.eye(n)).astype(np.float32)
+    x = rng.uniform(0.5, 1.5, (C, M, n)).astype(np.float32)
+    b = np.einsum('cij,cmj->cmi', G, x).astype(np.float32)
+    return torch.from_numpy(G), torch.from_numpy(b), torch.from_numpy(x)
+
+
+# (tiles, lam2, solver kwargs): FreeWater-like churning tiles (Human n = 11,
+# Mouse n = 12) and the random problems under the dense schedule (n = 21)
+PERMUTED = {
+    'human-n11': (lambda: collinear_problems(2, 11), 1e-3,
+                  DEFAULT_AS_SOLVER_KW),
+    'mouse-n12': (lambda: collinear_problems(2, 12, seed=1), 1e-3, INEXACT),
+    'dense-n21': (lambda: tuple(torch.from_numpy(a) for a in
+                                random_qp_problems(3, 21, seed=0)), 4.0,
+                  DENSE_AS_SOLVER_KW),
+}
+
+
+@pytest.mark.parametrize('case', list(PERMUTED))
+def test_tile_exit_does_not_depend_on_voxel_order(case):
+    """Permuting the voxels of each tile permutes the twin's x bit for bit:
+    the tile-wide exit reads only order-free reductions (all, max)."""
+    make, lam2, kw = PERMUTED[case]
+    G, b = make()
+    C, M, n = b.shape
+    rng = np.random.RandomState(7)
+    perm = torch.from_numpy(np.stack([rng.permutation(M) for _ in range(C)]))
+    idx = perm[..., None].expand(C, M, n)
+    x, tail = qp_tail(G, b, None, 0.0, lam2, **kw)
+    x_p = nneg_qp_tiles_torch(G, torch.gather(b, 1, idx), None, 0.0, lam2,
+                              **kw)
+    assert torch.equal(x_p, torch.gather(x, 1, idx))
+    if case != 'dense-n21':
+        assert int(tail['rounds'].max()) > 0     # the continuation ran
+
+
+def test_tail_of_a_tile_stable_after_the_schedule():
+    G, b, _ = dense_solution_problems()
+    kw = dict(fista_iters=0, refine_rounds=20, cg_iters=16, converge=True)
+    x, tail = qp_tail(G, b, None, 0.0, 0.0, **kw)
+    assert torch.equal(x, nneg_qp_tiles_torch(G, b, None, 0.0, 0.0, **kw))
+    assert tail['rounds'].tolist() == [0, 0]
+    assert [TAIL_EXITS[e] for e in tail['exit'].tolist()] == ['stable'] * 2
+    assert tail_histogram(tail)['rounds'] == {'0': 2, '1-8': 0, '9-47': 0,
+                                              'cap': 0}
+
+
+def test_tail_of_a_tile_needing_more_atoms_than_rounds():
+    """From an empty working set each round adds at most one atom, so a
+    solution on all n atoms needs at least n - rounds continuation rounds
+    after `rounds` scheduled ones."""
+    G, b, x_true = dense_solution_problems()
+    n, rounds = b.shape[-1], 2
+    kw = dict(fista_iters=0, refine_rounds=rounds, cg_iters=16,
+              converge=True)
+    x, tail = qp_tail(G, b, None, 0.0, 0.0, **kw)
+    assert bool((tail['rounds'] >= n - rounds).all()), tail['rounds']
+    assert bool((tail['rounds'] < tail['cap']).all())
+    assert [TAIL_EXITS[e] for e in tail['exit'].tolist()] == ['stable'] * 2
+    assert float((x - x_true).abs().max()) < 1e-4
+
+
+def test_tail_of_inexact_cg_tiles_reaches_the_cap():
+    """Two CG steps a round on churning tiles: some tiles run to the round
+    cap, 3 * npad = 48 at n = 11, and leave by it."""
+    G, b = collinear_problems(8, 11)
+    _, tail = qp_tail(G, b, None, 0.0, 1e-3, **INEXACT)
+    assert tail['cap'] == 48
+    capped = tail['rounds'] == 48
+    assert int(capped.sum()) >= 2, tail['rounds']
+    assert bool((tail['exit'][capped] == TAIL_EXITS.index('cap')).all())
+    assert bool((tail['rounds'] <= 48).all())
+    hist = tail_histogram(tail)
+    assert hist['rounds']['cap'] == int(capped.sum())
+    assert sum(hist['exit'].values()) == 8
+
+
+def test_tail_rounds_agree_with_solve_work():
+    """qp_tail's rounds against testing.solve_work's running-tile matvec
+    count: every voxel runs the schedule's matvecs, plus inner (1 + cont_cg)
+    + 1 for each continuation round of its tile, plus 1 + polish."""
+    G, b = collinear_problems(4, 11, M=32)
+    kw = INEXACT
+    x, tail = qp_tail(G, b, None, 0.0, 1e-3, **kw)
+    out, work = solve_work(nneg_qp_tiles_torch, G, b, None, 0.0, 1e-3, **kw)
+    assert torch.equal(x, out)
+    s = cuda_qp.qp_schedule(11, **kw)
+    sched = sum(s.inner[r] * (1 + s.cg[r]) + 1 for r in range(len(s.cg)))
+    per_round = max(s.inner) * (1 + s.cont_cg) + 1
+    chain = sched + tail['rounds'].double() * per_round + 1 + s.polish
+    assert torch.equal(tail['matvecs'], chain)
+    assert work['matvecs'] == float(chain.sum()) * b.shape[1]
+    assert int(tail['rounds'].sum()) > 0
+
+
+# n -> (group width, coefficients a lane, warps a block, blocks a tile,
+# voxels in flight, state, dynamic shared memory bytes a block) at 128
+# voxels a tile on an H100: G at 32 * per_lane floats a row, 2 * per_lane
+# + 1 words a voxel, then x and b_eff (state 2) or x alone (state 1) as
+# they fit
+GEOMETRY = {
+    1: (8, 1, 32, 2, 256, 2, (32 + 384 + 2 * 128) * 4),
+    8: (8, 1, 32, 2, 256, 2, (256 + 384 + 2 * 1024) * 4),
+    9: (16, 1, 32, 2, 128, 2, (288 + 384 + 2 * 1152) * 4),
+    11: (16, 1, 32, 2, 128, 2, (352 + 384 + 2 * 1408) * 4),
+    16: (16, 1, 32, 2, 128, 2, (512 + 384 + 2 * 2048) * 4),
+    17: (32, 1, 32, 2, 64, 2, (544 + 384 + 2 * 2176) * 4),
+    26: (32, 1, 32, 2, 64, 2, (832 + 384 + 2 * 3328) * 4),
+    32: (32, 1, 32, 2, 64, 2, (1024 + 384 + 2 * 4096) * 4),
+    33: (32, 2, 16, 1, 16, 2, (2112 + 640 + 2 * 4224) * 4),
+    160: (32, 5, 16, 1, 16, 1, (25600 + 1408 + 20480) * 4),
+}
+
+
+@pytest.mark.parametrize('n', list(GEOMETRY))
+def test_launch_geometry(n):
+    g = cuda_qp.qp_geometry(n, 128, H100_SMEM)
+    assert (g.width, g.per_lane, g.warps, g.cluster, g.groups, g.state,
+            g.smem) == GEOMETRY[n]
+    assert g.width * g.per_lane >= n and g.smem <= H100_SMEM - 1024
+
+
+def test_launch_geometry_edges():
+    with pytest.raises(NotImplementedError, match='at most 160'):
+        cuda_qp.qp_geometry(161, 128, H100_SMEM)
+    with pytest.raises(ValueError, match='at least one'):
+        cuda_qp.qp_geometry(0, 128, H100_SMEM)
+    # 256 voxels of 160 atoms: neither x nor b_eff fits beside G
+    g = cuda_qp.qp_geometry(160, 256, H100_SMEM)
+    assert (g.state, g.smem) == (0, (25600 + 256 * 11) * 4)
+    # G and the per-voxel words alone overflow: at 160 atoms from 2,933
+    # voxels on an H100, at once on a card of 48 KB a block
+    assert cuda_qp.qp_geometry(160, 2932, H100_SMEM).state == 0
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        cuda_qp.qp_geometry(160, 2933, H100_SMEM)
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        cuda_qp.qp_geometry(160, 128, 48 * 1024)
+    assert cuda_qp.qp_geometry(11, 0, H100_SMEM).smem == 352 * 4

@@ -96,12 +96,18 @@ CASES = {
                        dict(fista_iters=10, refine_rounds=1, cg_iters=8,
                             inner_passes=1, converge=True)),
 }
+# the kernel's lane-group edges (csrc/nneg_qp.cu: 8 lanes a voxel up to
+# n = 8, 16 up to 16, a warp above), at ragged voxel counts a tile; these
+# entries carry M as a seventh field (the others solve 128 voxels a tile)
+CASES.update({f'edge-n{n}-M{M}': (n, 0, 0.0, 1e-3, None,
+                                  base.DEFAULT_AS_SOLVER_KW, M)
+              for n in (8, 9, 16, 17) for M in (1, 7, 33)})
 
 
 @pytest.mark.parametrize('case', list(CASES))
 def test_twin_matches_pallas(case):
-    n, seed, lam1, lam2, extra, kw = CASES[case]
-    G, b = problems(n=n, seed=seed)
+    n, seed, lam1, lam2, extra, kw, *M = CASES[case]
+    G, b = problems(M=M[0] if M else 128, n=n, seed=seed)
     inputs = {}
     if extra == 'mask':
         inputs['mask'] = mask_for(b)
