@@ -40,7 +40,7 @@
 // The tile's voxels meet only at the `converge` test: each block takes a
 // __syncthreads_and over its groups' stability and a block max of their
 // |dx|, and the blocks of a cluster exchange the two through distributed
-// shared memory, one cluster barrier a round (tile_vote).
+// shared memory, one cluster barrier a round (tile_vote, qp_warp.cuh).
 //
 // What bounds it.  Not memory: a tile reads G (n*n floats) and b once and
 // writes x once.  Nor the operations the inputs need (testing.solve_work).
@@ -55,12 +55,9 @@
 // the same order, and the vote's AND and max are exact, so the results are
 // bit-identical to one block a tile of whole warps (PERF.md has the sweeps
 // that picked NWARPS, MINB and QP_CLUSTER).
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "qp_warp.cuh"
-
-namespace coop = cooperative_groups;
 
 #define QP_MAXK 5         // coefficients per lane: n <= 160
 #define QP_MAXR 32        // per-round CG budgets; later rounds reuse the last
@@ -143,54 +140,6 @@ __device__ __forceinline__ unsigned load_bits(const unsigned* w,
 #pragma unroll
   for (int k = 0; k < K; k++) m |= ((w[k] >> L.lane) & 1u) << k;
   return m;
-}
-
-// L = v'Gv * 1.01 + 1e-30 after 10 power iterations from ones (one group)
-template <int K, int W>
-__device__ __forceinline__ float lipschitz(const float* Gs, int n,
-                                           const Lanes<W>& L) {
-  float v[K], w[K];
-#pragma unroll
-  for (int k = 0; k < K; k++) v[k] = L.lane + W * k < n ? 1.f : 0.f;
-  for (int it = 0; it < 10; it++) {
-    gmv<K, W>(Gs, v, w, L);
-    const float nrm = sqrtf(vdot<K, W>(w, w, L)) + 1e-30f;
-#pragma unroll
-    for (int k = 0; k < K; k++) v[k] = w[k] / nrm;
-  }
-  gmv<K, W>(Gs, v, w, L);
-  return vdot<K, W>(v, w, L) * 1.01f + 1e-30f;
-}
-
-// FISTA from zero with adaptive restart; b is zero outside cmask
-template <int K, int W>
-__device__ __forceinline__ void fista(const float* Gs, const float (&b)[K],
-                                      unsigned cmask, float l1, float l2,
-                                      float step, int iters, float (&x)[K],
-                                      const Lanes<W>& L) {
-  float z[K], Gz[K], xn[K];
-#pragma unroll
-  for (int k = 0; k < K; k++) x[k] = z[k] = 0.f;
-  float t = 1.f;
-  for (int it = 0; it < iters; it++) {
-    gmv<K, W>(Gs, z, Gz, L);
-    float part = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; k++) {
-      const float grad = Gz[k] - b[k] + l2 * z[k];
-      xn[k] = bit(cmask, k) ? fmaxf(z[k] - step * (grad + l1), 0.f) : 0.f;
-      part += (z[k] - xn[k]) * (xn[k] - x[k]);
-    }
-    const bool restart = group_sum<W>(part, L.mask()) > 0.f;
-    const float t_new = 0.5f * (1.f + sqrtf(1.f + 4.f * t * t));
-    const float beta = restart ? 0.f : (t - 1.f) / t_new;
-    t = restart ? 1.f : t_new;
-#pragma unroll
-    for (int k = 0; k < K; k++) {
-      z[k] = xn[k] + beta * (xn[k] - x[k]);
-      x[k] = xn[k];
-    }
-  }
 }
 
 // warm start and the scheduled rounds of voxel v of the tile (vox in the
@@ -314,50 +263,6 @@ __device__ __forceinline__ void polish(const QpParams& P, const float* Gs,
 #pragma unroll
   for (int k = 0; k < K; k++) x[k] = fmaxf(x[k], 0.f);
   store_row<K, W>(P.x + vox * P.n, P.n, L.lane, x);
-}
-
-// max over the block of a value that is the same on each group's lanes
-// (every thread must call it)
-template <int NW>
-__device__ __forceinline__ float block_max(float v, float* red, int warp,
-                                           int wlane) {
-  v = warp_max(v);
-  if (wlane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < NW; w++) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-// the tile's vote: the AND of `stable` and the max of v over the tile's
-// groups, over the block and then (CS > 1) over the blocks of its cluster
-// through distributed shared memory (every thread must call it).  The
-// slots alternate with `turn`, so a block still reading one turn's slots
-// never meets the next turn's writes: a cluster barrier lies between.
-template <int NW, int CS>
-__device__ __forceinline__ bool tile_vote(bool stable, float& v, float* red,
-                                          float* slots, int turn, int warp,
-                                          int wlane) {
-  stable = __syncthreads_and(stable);
-  v = block_max<NW>(v, red, warp, wlane);
-  if (CS > 1) {
-    coop::cluster_group cl = coop::this_cluster();
-    float* mine = slots + 2 * (turn & 1);
-    if (threadIdx.x == 0) {
-      mine[0] = stable ? 1.f : 0.f;
-      mine[1] = v;
-    }
-    cl.sync();
-#pragma unroll
-    for (int r = 0; r < CS; r++) {
-      const float* theirs = cl.map_shared_rank(mine, r);
-      stable = stable && theirs[0] != 0.f;
-      v = fmaxf(v, theirs[1]);
-    }
-  }
-  return stable;
 }
 
 // one tile per cluster of CS blocks (one block when CS = 1)

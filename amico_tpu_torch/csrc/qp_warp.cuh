@@ -26,8 +26,15 @@
 //
 // Every helper is force-inlined: the per-lane arrays then stay in registers
 // (a call would pass them through local memory).
+//
+// Besides the rounds: FISTA with its Lipschitz estimate, which warm-starts
+// a solve without a seeded working set, and the tile's vote (block and
+// cluster reductions), which the per-tile exits of both kernels take.
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace coop = cooperative_groups;
 
 #define FULL 0xffffffffu
 #define QP_TOL 3e-6f     // prune / add gate, relative to max|b_eff| per voxel
@@ -276,4 +283,108 @@ __device__ __forceinline__ bool as_round(const Stage<K, W>& S, float (&x)[K],
   for (int i = 0; i < inner; i++) inner_solve<K, W>(S, x, m, iters);
   const bool added = add_atoms<K, W>(S, x, m, add_k);
   return !added && __all_sync(S.L.mask(), m == m_before);
+}
+
+// L = v'Gv * 1.01 + 1e-30 after 10 power iterations from ones (one group)
+template <int K, int W>
+__device__ __forceinline__ float lipschitz(const float* Gs, int n,
+                                           const Lanes<W>& L) {
+  float v[K], w[K];
+#pragma unroll
+  for (int k = 0; k < K; k++) v[k] = L.lane + W * k < n ? 1.f : 0.f;
+  for (int it = 0; it < 10; it++) {
+    gmv<K, W>(Gs, v, w, L);
+    const float nrm = sqrtf(vdot<K, W>(w, w, L)) + 1e-30f;
+#pragma unroll
+    for (int k = 0; k < K; k++) v[k] = w[k] / nrm;
+  }
+  gmv<K, W>(Gs, v, w, L);
+  return vdot<K, W>(v, w, L) * 1.01f + 1e-30f;
+}
+
+// one FISTA step from (x, z, t) with adaptive restart; b is zero outside
+// cmask
+template <int K, int W>
+__device__ __forceinline__ void fista_step(const float* Gs,
+                                           const float (&b)[K],
+                                           unsigned cmask, float l1,
+                                           float l2, float step,
+                                           float (&x)[K], float (&z)[K],
+                                           float& t, const Lanes<W>& L) {
+  float Gz[K], xn[K];
+  gmv<K, W>(Gs, z, Gz, L);
+  float part = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const float grad = Gz[k] - b[k] + l2 * z[k];
+    xn[k] = bit(cmask, k) ? fmaxf(z[k] - step * (grad + l1), 0.f) : 0.f;
+    part += (z[k] - xn[k]) * (xn[k] - x[k]);
+  }
+  const bool restart = group_sum<W>(part, L.mask()) > 0.f;
+  const float t_new = 0.5f * (1.f + sqrtf(1.f + 4.f * t * t));
+  const float beta = restart ? 0.f : (t - 1.f) / t_new;
+  t = restart ? 1.f : t_new;
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    z[k] = xn[k] + beta * (xn[k] - x[k]);
+    x[k] = xn[k];
+  }
+}
+
+// FISTA from zero, a fixed trip count
+template <int K, int W>
+__device__ __forceinline__ void fista(const float* Gs, const float (&b)[K],
+                                      unsigned cmask, float l1, float l2,
+                                      float step, int iters, float (&x)[K],
+                                      const Lanes<W>& L) {
+  float z[K];
+#pragma unroll
+  for (int k = 0; k < K; k++) x[k] = z[k] = 0.f;
+  float t = 1.f;
+  for (int it = 0; it < iters; it++)
+    fista_step<K, W>(Gs, b, cmask, l1, l2, step, x, z, t, L);
+}
+
+// max over the block of a value that is the same on each group's lanes
+// (every thread must call it)
+template <int NW>
+__device__ __forceinline__ float block_max(float v, float* red, int warp,
+                                           int wlane) {
+  v = warp_max(v);
+  if (wlane == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < NW; w++) r = fmaxf(r, red[w]);
+  __syncthreads();
+  return r;
+}
+
+// the tile's vote: the AND of `stable` and the max of v over the tile's
+// groups, over the block and then (CS > 1) over the blocks of its cluster
+// through distributed shared memory (every thread must call it).  The
+// slots alternate with `turn`, so a block still reading one turn's slots
+// never meets the next turn's writes: a cluster barrier lies between.
+template <int NW, int CS>
+__device__ __forceinline__ bool tile_vote(bool stable, float& v, float* red,
+                                          float* slots, int turn, int warp,
+                                          int wlane) {
+  stable = __syncthreads_and(stable);
+  v = block_max<NW>(v, red, warp, wlane);
+  if (CS > 1) {
+    coop::cluster_group cl = coop::this_cluster();
+    float* mine = slots + 2 * (turn & 1);
+    if (threadIdx.x == 0) {
+      mine[0] = stable ? 1.f : 0.f;
+      mine[1] = v;
+    }
+    cl.sync();
+#pragma unroll
+    for (int r = 0; r < CS; r++) {
+      const float* theirs = cl.map_shared_rank(mine, r);
+      stable = stable && theirs[0] != 0.f;
+      v = fmaxf(v, theirs[1]);
+    }
+  }
+  return stable;
 }

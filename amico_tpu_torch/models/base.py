@@ -33,10 +33,11 @@ DEFAULT_NODDI_STAGE_ITERS = ((0, 4, (4, 6, 8, 10), 1, False, 2),
                              (0, 6, (3, 5, 8, 10, 12, 14),
                               (1, 1, 2, 2, 2, 2), False, 2),
                              (6, (16, 10, 8, 8, 8, 8), 2))
-# single-solve models (FreeWater; SANDI once ported), as in the JAX
-# package: Lawson-Hanson from the empty working set
-# with per-round CG budgets, and `converge` rounds past the schedule until
-# the tile's working sets are stable, so no support is cut at the round count
+# FreeWater's single solve, as in the JAX package (SANDI and
+# CylinderZeppelinBall take their own, below and in their modules):
+# Lawson-Hanson from the empty working set with per-round CG budgets, and
+# `converge` rounds past the schedule until the tile's working sets are
+# stable, so no support is cut at the round count
 DEFAULT_AS_SOLVER_KW = {
     'fista_iters': 0,
     'cd_sweeps': 0,

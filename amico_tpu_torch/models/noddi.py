@@ -23,10 +23,10 @@ import torch
 from .. import lut as _lut
 from ..synthesis import (NODDIExtraCellular, NODDIIntraCellular,
                          NODDIIsotropic)
-from ..utils.logging import get_verbose
+from ..utils.logging import NOTE, get_verbose
 from ..utils.progress import ProgressBar
 from ..device import resolve_device
-from ..ops.cuda_qp import noddi_fused_tiles, noddi_schedules
+from ..ops.cuda_qp import noddi_fused_tiles
 from ..ops.solvers import gram, noddi_stage2_tiebreak, power_iteration_L
 from ._fitops import error_maps, project, solve_tiles
 from .base import DEFAULT_NODDI_STAGE_ITERS, BaseModel
@@ -52,6 +52,38 @@ def _kappa_neighbours(icvf: np.ndarray, kappa: np.ndarray):
         if pos + 1 < order.size:
             nbp[j] = order[pos + 1]
     return nbm, nbp
+
+
+_PRECISIONS = ('highest', 'high', 'default', 'split3')
+
+
+def _check_precision(precision) -> None:
+    """Raise ValueError on a precision the JAX package's fused kernel does
+    not resolve (``_resolve_precision``): a name of _PRECISIONS, or a
+    3-tuple whose entries are names or an (iter, polish) or (iter, late,
+    n_late) form with an int n_late."""
+    def name(p):
+        if not (isinstance(p, str) and p in _PRECISIONS):
+            raise ValueError(f'precision {p!r} is none of {_PRECISIONS}')
+
+    if precision is None or isinstance(precision, str):
+        if precision is not None:
+            name(precision)
+        return
+    for entry in precision:
+        if isinstance(entry, str):
+            name(entry)
+            continue
+        entry = tuple(entry)
+        if len(entry) not in (2, 3):
+            raise ValueError(f'precision entry {entry!r}: (iter, polish) or '
+                             '(iter, late, n_late) expected')
+        name(entry[0])
+        name(entry[1])
+        if len(entry) == 3 and (isinstance(entry[2], bool)
+                                or not isinstance(entry[2], int)):
+            raise ValueError(f'precision entry {entry!r}: n_late must be '
+                             'an int')
 
 
 class NODDI(BaseModel):
@@ -88,10 +120,19 @@ class NODDI(BaseModel):
                    backend=None, stage_iters=None, precision=None,
                    tiebreak=None):
         """Same signature and stored parameters as the JAX package's
-        ``NODDI.set_solver``.  ``backend`` 'auto' and 'pallas' run the
-        fused solve, which takes ``precision`` None or 'highest' (float32)
-        and no ``tiebreak``; 'xla' runs the stagewise solve, which takes
-        ``tiebreak`` and, as in the JAX package, ignores ``precision``."""
+        ``NODDI.set_solver``.  ``stage_iters`` overrides the per-stage
+        schedule ((fista, rounds, cg, inner[, converge[, add_k]]) x2,
+        (rounds, cg, inner[, converge[, add_k]])); the iteration knobs give
+        the uniform FISTA-seeded one.  ``tiebreak`` True (CG budget
+        DEFAULT_NODDI_TIEBREAK_CG) or an int turns on stage 2's tie-break.
+        ``precision`` takes what the JAX package takes: 'highest',
+        'high', 'default' or 'split3', or a 3-tuple of per-stage entries,
+        each a name or an (iter, polish) or (iter, late, n_late) form.  The
+        port computes every stage in float32, which is never less precise
+        than asked: the precision is validated and stored, and the fit
+        says so at verbose 2.  'auto' and 'pallas' run the fused solve
+        (the CUDA kernel on a card, its twin on the CPU), 'xla' the
+        stagewise one; both take every knob."""
         self._set_solver_common(lambda1, lambda2, fista_iters, cd_sweeps,
                                 refine_rounds, cg_iters, backend)
         if stage_iters is not None:
@@ -104,6 +145,7 @@ class NODDI(BaseModel):
                 raise ValueError(
                     'precision must be a string or a 3-tuple of per-stage '
                     f'entries, got {precision!r}')
+        _check_precision(precision)
         self.solver_params['precision'] = precision
         self.solver_params['tiebreak'] = (
             False if tiebreak is None
@@ -228,21 +270,6 @@ class NODDI(BaseModel):
                 stage_iters = DEFAULT_NODDI_STAGE_ITERS
         return stage_iters
 
-    def _fused_stage_iters(self):
-        """The fused solve's schedule; raises on what it does not take."""
-        sp = self.solver_params
-        if sp.get('tiebreak'):
-            raise NotImplementedError(
-                'the stage-2 tie-break of the fused solve is not ported '
-                "(ROADMAP queue 2, K1 follow-ups); backend='xla' runs it")
-        if sp.get('precision') not in (None, 'highest'):
-            raise NotImplementedError(
-                f"precision {sp['precision']!r}: the port computes in "
-                'float32 only; the precision tiers are ROADMAP work')
-        stage_iters = self._stage_iters()
-        noddi_schedules(stage_iters)        # reject what the solve lacks
-        return stage_iters
-
     def _stagewise_kwargs(self) -> tuple:
         """The stagewise solve's per-stage ``nneg_qp_batch`` arguments
         from the schedule, as the JAX XLA path unpacks it: trailing
@@ -275,10 +302,14 @@ class NODDI(BaseModel):
         stagewise = self._solver_backend() == 'xla'
         if stagewise:
             kw1, kw2, kw3 = self._stagewise_kwargs()
-            tb = self.solver_params.get('tiebreak', False)
-            tb_cg = DEFAULT_NODDI_TIEBREAK_CG if tb is True else int(tb or 0)
         else:
-            stage_iters = self._fused_stage_iters()
+            stage_iters = self._stage_iters()
+            precision = self.solver_params.get('precision')
+            if precision not in (None, 'highest'):
+                NOTE(f'precision {precision!r}: the fused solve computes '
+                     'every stage in float32')
+        tb = self.solver_params.get('tiebreak', False)
+        tb_cg = DEFAULT_NODDI_TIEBREAK_CG if tb is True else int(tb or 0)
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
         is_exvivo = bool(self.isExvivo)
@@ -289,7 +320,8 @@ class NODDI(BaseModel):
         rows = c['rows_dwi']
         n_wm = kernels['wm'].shape[0]
         na = c['A_all'].shape[-1]
-        if stagewise and tb_cg:
+        nb_m = nb_p = None
+        if tb_cg:
             nb_m, nb_p = (torch.as_tensor(t, device=device)
                           for t in _kappa_neighbours(
                               np.asarray(kernels['icvf']),
@@ -347,7 +379,8 @@ class NODDI(BaseModel):
                     c['A2_all'][dirs].transpose(1, 2),   # no copy for K1
                     c['iso_dwi'], c['icvf'], c['kappa'], lam1=lam1,
                     lam2=lam2, stage_iters=stage_iters, want_x=want_x,
-                    is_exvivo=is_exvivo)
+                    is_exvivo=is_exvivo, tiebreak_cg=tb_cg, nb_minus=nb_m,
+                    nb_plus=nb_p)
                 est, x = out if want_x else (out, None)
             vmask = valid[..., None].to(est.dtype)
             res = {'estimates': est * vmask}

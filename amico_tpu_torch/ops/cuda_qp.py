@@ -22,8 +22,13 @@ tile holds M voxels that share one LUT direction, and each voxel runs
    working set seeded by that mask and CG warm-started from x1.
 
 Every stage runs Lawson-Hanson rounds (masked CG, ratio-test step back,
-prune, top-k adds) and a final CG polish at the stage's largest budget.
-All arithmetic is float32.
+prune, top-k adds) and a final CG polish at the stage's largest budget;
+stages 1-2 may start with FISTA, any stage may append the per-tile
+``converge`` continuation, and ``early_exit`` stops FISTA and the scheduled
+rounds once the tile is settled.  Stage 2 may end with the tie-break (the
+dominant atom swapped for its kappa neighbours, the lowest objective kept)
+and the ``want_tie`` score.  All arithmetic is float32, whatever precision
+the JAX kernel was asked for.
 
 :func:`noddi_fused_tiles_torch` is the twin: the same math batched over
 (C, M, n) tensors with Python loops over rounds.  :func:`noddi_fused_tiles`
@@ -40,13 +45,19 @@ import numpy as np
 import torch
 
 from .cuda_build import Launcher, entry
+from .solvers import noddi_stage2_tiebreak
 
 TOL = 3e-6          # prune / add gate, relative to max|b_eff| per voxel
+FTOL = 1e-4         # FISTA's early exit, relative to the tile's max|b|
 BIG = 3.0e38
-MAX_ROUNDS = 32     # csrc/noddi_fused.cu MAXR
 MAX_ATOMS = 160     # csrc/noddi_fused.cu 32 * KMAX
 SMEM_LD = 160       # csrc/noddi_fused.cu LD: row stride of a Gram in shared memory
 SUP_WORDS = 5       # csrc/noddi_fused.cu KMAX: stage-2 support words a voxel
+
+
+def _round_up8(n: int) -> int:
+    """n padded as the TPU kernels pad the atom axis (a multiple of 8)."""
+    return -(-int(n) // 8) * 8
 
 
 @dataclass(frozen=True)
@@ -56,7 +67,11 @@ class StageSchedule:
     ``fista`` FISTA iterations run first when no working set is seeded.
     ``cont_cg`` > 0 turns on the ``converge`` continuation: rounds at that
     CG budget (and the largest inner-pass count) while the tile is not
-    done, at most ``cont_rounds`` of them."""
+    done, at most ``cont_rounds`` of them.  ``early_exit`` ends FISTA once
+    no coefficient of the tile moves by more than FTOL * the tile's
+    max|b|, and skips the scheduled rounds left once a round leaves the
+    whole tile stable.  No rounds (``cg`` empty): the solve returns its
+    FISTA iterate or warm start as it is."""
     cg: tuple
     inner: tuple
     add_k: int
@@ -64,18 +79,24 @@ class StageSchedule:
     fista: int = 0
     cont_cg: int = 0
     cont_rounds: int = 0
+    early_exit: bool = False
 
 
-def stage_schedule(stage: tuple, has_fista: bool) -> StageSchedule:
-    """Normalise one ``stage_iters`` entry exactly as the JAX kernel builder
-    does (``_make_noddi_kernel.mk`` + ``_build_as_solve``).
+def stage_schedule(stage: tuple, has_fista: bool, n: int,
+                   early_exit: bool = False) -> StageSchedule:
+    """Normalise one ``stage_iters`` entry of an ``n``-atom solve exactly as
+    the JAX package's ``_make_noddi_kernel.mk`` and ``_build_as_solve``
+    read it.
 
     ``stage`` is (fista, rounds, cg, inner[, converge[, add_k]]) for stages
-    1-2 and (rounds, cg, inner[, converge[, add_k]]) for stage 3.  A ``cg``
-    or ``inner`` entry may be a per-round tuple.  FISTA warm starts,
-    ``converge`` continuation and empty schedules are not supported here
-    (ROADMAP queue 2, K1 follow-ups) and raise ``NotImplementedError``.
-    """
+    1-2 and (rounds, cg, inner[, converge[, add_k]]) for stage 3, which
+    never runs FISTA.  A ``cg`` or ``inner`` entry may be a per-round
+    tuple (cut to ``rounds`` and extended at its last entry); the polish
+    runs at the largest budget.  ``converge`` (True, or an int CG budget)
+    adds the continuation at ``max(cap, npad)`` or ``max(cap, converge)``
+    CG steps, at most ``3 * npad`` rounds, and moves the polish to that
+    budget (npad: n rounded up to a multiple of 8, the TPU kernel's
+    padding)."""
     stage = tuple(stage)
     base = 4 if has_fista else 3
     if len(stage) > base + 2:
@@ -84,19 +105,12 @@ def stage_schedule(stage: tuple, has_fista: bool) -> StageSchedule:
                          'converge + add_k)')
     if has_fista:
         fista, rounds, cg, inner = stage[:4]
-        if int(fista) != 0:
-            raise NotImplementedError(
-                'FISTA warm starts in the fused NODDI solve are not ported '
-                '(ROADMAP queue 2, K1 follow-ups); use fista=0')
     else:
+        fista = 0
         rounds, cg, inner = stage[:3]
     converge = stage[base] if len(stage) > base else False
     add_k = int(stage[base + 1]) if len(stage) > base + 1 else 1
-    if converge is not False and converge != 0:
-        raise NotImplementedError(
-            "the fused NODDI solve's 'converge' continuation is not ported "
-            '(ROADMAP queue 2, K1 follow-ups)')
-    rounds = int(rounds)
+    rounds = max(int(rounds), 0)
     sched = tuple(int(c) for c in cg) if isinstance(cg, (tuple, list)) \
         else None
     inns = tuple(int(i) for i in inner) if isinstance(inner, (tuple, list)) \
@@ -116,20 +130,30 @@ def stage_schedule(stage: tuple, has_fista: bool) -> StageSchedule:
     else:
         sched = [cap] * rounds
         inner_r = [ip] * rounds
-    if not sched:
-        raise NotImplementedError('a stage needs at least one round')
-    if len(sched) > MAX_ROUNDS:
-        raise NotImplementedError(
-            f'at most {MAX_ROUNDS} rounds per stage, got {len(sched)}')
     if add_k < 1:
         raise ValueError(f'add_k must be >= 1, got {add_k}')
-    return StageSchedule(tuple(sched), tuple(inner_r), add_k, cap)
+    if int(fista) < 0 or cap < 0 or ip < 0:
+        raise ValueError(f'stage tuple {stage}: negative iteration counts')
+    cont_cg = cont_rounds = 0
+    polish = cap
+    if converge:
+        npad = _round_up8(n)
+        cont_cg = max(cap, npad) if isinstance(converge, bool) \
+            else max(cap, int(converge))
+        cont_rounds = 3 * npad
+        polish = cont_cg
+    return StageSchedule(tuple(sched), tuple(inner_r), add_k, polish,
+                         int(fista), cont_cg, cont_rounds, bool(early_exit))
 
 
-def noddi_schedules(stage_iters) -> tuple:
+def noddi_schedules(stage_iters, na: int, n_wm: int,
+                    early_exit: bool = False) -> tuple:
+    """The three stages' schedules of ``stage_iters`` for a dictionary of
+    ``na`` atoms, ``n_wm`` of them in stage 2's."""
     s1, s2, s3 = stage_iters
-    return (stage_schedule(s1, True), stage_schedule(s2, True),
-            stage_schedule(s3, False))
+    return (stage_schedule(s1, True, na, early_exit),
+            stage_schedule(s2, True, n_wm, early_exit),
+            stage_schedule(s3, False, na, early_exit))
 
 
 # ------------------------------------------------------------------ twin
@@ -144,22 +168,36 @@ def _lipschitz(G):
         + 1e-30
 
 
-def _fista(mv, G, bm, l1, l2, cmask, iters):
-    """FISTA from zero with adaptive restart per voxel, a fixed trip count
-    and one step size per tile."""
+def _fista(mv, G, bm, l1, l2, cmask, iters, early_exit=False):
+    """FISTA from zero with adaptive restart per voxel and one step size
+    per tile; with ``early_exit`` a tile stops once no coefficient of it
+    moved by more than FTOL * its max|bm| in an iteration."""
     step = 1.0 / (_lipschitz(G) + l2 + 1e-30)
     x = torch.zeros_like(bm)
     z = x
     t = torch.ones(bm.shape[:-1] + (1,), dtype=bm.dtype, device=bm.device)
+    tile = (-1,) + (1,) * (bm.dim() - 1)
+    if early_exit:
+        xtol = FTOL * (bm.abs().flatten(1).amax(1) + 1e-30)
+        settled = torch.zeros(bm.shape[0], dtype=torch.bool, device=bm.device)
     for _ in range(iters):
+        if early_exit and bool(settled.all()):
+            break
         grad = mv(z) - bm + l2 * z
         x_new = torch.clamp(z - step * (grad + l1), min=0.0) * cmask
         restart = ((z - x_new) * (x_new - x)).sum(-1, keepdim=True) > 0.0
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
         beta = torch.where(restart, 0.0, (t - 1.0) / t_new)
-        t = torch.where(restart, 1.0, t_new)
-        z = x_new + beta * (x_new - x)
-        x = x_new
+        t_new = torch.where(restart, 1.0, t_new)
+        z_new = x_new + beta * (x_new - x)
+        if early_exit:
+            run = (~settled).view(tile)
+            settled = settled | \
+                ((x_new - x).abs().flatten(1).amax(1) <= xtol)
+            x_new = torch.where(run, x_new, x)
+            z_new = torch.where(run, z_new, z)
+            t_new = torch.where(run, t_new, t)
+        x, z, t = x_new, z_new, t_new
     return x
 
 
@@ -174,7 +212,7 @@ def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
 
     bm = b * cmask
     if m0 is None and sch.fista > 0:
-        x = _fista(mv, G, bm, l1, l2, cmask, sch.fista)
+        x = _fista(mv, G, bm, l1, l2, cmask, sch.fista, sch.early_exit)
     else:
         x = torch.zeros_like(b) if x_init is None else x_init
     if not sch.cg:
@@ -237,8 +275,21 @@ def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
         return x, m_new, stable
 
     m = (x > 0.0).float() * cmask if m0 is None else m0 * cmask
+    tile = (-1,) + (1,) * (x.dim() - 1)
+    stable = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
     for iters, inner in zip(sch.cg, sch.inner):
-        x, m, stable = as_round(x, m, iters, inner)
+        if not sch.early_exit:
+            x, m, stable = as_round(x, m, iters, inner)
+            continue
+        # a stable tile skips the scheduled rounds left: its support
+        # cannot change, and the polish recomputes x on it
+        if bool(stable.all()):
+            break
+        xn, mn, st = as_round(x, m, iters, inner)
+        run = (~stable).view(tile)
+        x = torch.where(run, xn, x)
+        m = torch.where(run, mn, m)
+        stable = stable | st
     if sch.cont_cg:
         # per tile: continue while the working sets change and x still
         # moves by more than tol * the tile's largest scale
@@ -250,7 +301,7 @@ def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
                 break
             xn, mn, st = as_round(x, m, sch.cont_cg, inner)
             done_now = st | ((xn - x).abs().flatten(1).amax(1) <= xtol)
-            run = (~done).view((-1,) + (1,) * (x.dim() - 1))
+            run = (~done).view(tile)
             x = torch.where(run, xn, x)
             m = torch.where(run, mn, m)
             done = done | done_now
@@ -258,9 +309,21 @@ def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
     return torch.clamp(x, min=0.0)
 
 
+def _tie_score(G2, b2, x2, lam1, lam2):
+    """Per voxel (C, M): the stage-2 KKT gradient of the atoms outside
+    supp(x2), over max|b2 - lam1|, at its largest (-BIG with none); near 0
+    where a tied vertex exists.  One float32 matvec."""
+    beff = b2 - lam1
+    w = beff - (torch.matmul(x2, G2.transpose(-1, -2)) + lam2 * x2)
+    scale = beff.abs().amax(-1, keepdim=True) + 1e-30
+    return torch.where(x2 > 0.0, -BIG, w / scale).amax(-1)
+
+
 def _fused_raw_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa, lam1,
-                     lam2, scheds, is_exvivo):
-    """(C, M, 4) raw estimates [NDI, k1, FWF, dot] and x (C, M, na)."""
+                     lam2, scheds, is_exvivo, tiebreak=None, want_tie=False):
+    """(C, M, 4) raw estimates [NDI, k1, FWF, dot], x (C, M, na) and,
+    with ``want_tie``, the tie score (C, M), else None.  ``tiebreak``:
+    (nb_minus, nb_plus, CG budget) or None."""
     C, M, na = b1.shape
     n_wm = G2.shape[-1]
     ones1 = torch.ones_like(b1)
@@ -272,6 +335,11 @@ def _fused_raw_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa, lam1,
     # the same product whatever A2T's strides (the model hands a view)
     b2 = torch.matmul(Y2, A2T.contiguous().transpose(-1, -2))  # (C, M, n_wm)
     x2 = _as_solve(G2, b2, lam1, lam2, torch.ones_like(b2), scheds[1])
+    if tiebreak is not None:
+        nb_minus, nb_plus, cg_iters = tiebreak
+        x2 = noddi_stage2_tiebreak(G2, b2, x2, lam1, lam2, nb_minus, nb_plus,
+                                   cg_iters)
+    tie = _tie_score(G2, b2, x2, lam1, lam2) if want_tie else None
     mask3 = torch.cat([(x2 > 0.0).float(),
                        torch.ones((C, M, na - n_wm), dtype=b1.dtype,
                                   device=b1.device)], -1)
@@ -286,7 +354,7 @@ def _fused_raw_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa, lam1,
     ndi = f1 / (f1 + f2 + 1e-16)
     fwf = x[..., na - 1] / sum_atoms
     dot = x[..., na - 2] / sum_atoms if is_exvivo else torch.zeros_like(fwf)
-    return torch.stack([ndi, k1, fwf, dot], -1), x
+    return torch.stack([ndi, k1, fwf, dot], -1), x, tie
 
 
 def _finish(raw, is_exvivo):
@@ -323,36 +391,55 @@ def _check_inputs(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa):
             raise TypeError(f'inputs must be float32, got {t.dtype}')
 
 
-def _reject_unported(tiebreak_cg, want_tie):
-    if tiebreak_cg:
-        raise NotImplementedError(
-            'the stage-2 tie-break of the fused NODDI solve is not ported '
-            '(ROADMAP queue 2, K1 follow-ups)')
-    if want_tie:
-        raise NotImplementedError(
-            "the fused NODDI solve's want_tie score is not ported (ROADMAP "
-            'queue 2, K1 follow-ups)')
+def _tiebreak_args(tiebreak_cg, nb_minus, nb_plus, n_wm):
+    """The tie-break's (nb_minus, nb_plus, CG budget) or None: it runs, as
+    in the JAX kernel, only with a budget and both neighbour tables."""
+    if not tiebreak_cg or nb_minus is None or nb_plus is None:
+        return None
+    tables = []
+    for name, t in (('nb_minus', nb_minus), ('nb_plus', nb_plus)):
+        t = torch.as_tensor(t)
+        if tuple(t.shape) != (n_wm,):
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                             f'({n_wm},)')
+        if bool(((t < -1) | (t >= n_wm)).any()):
+            raise ValueError(f'{name} holds an index outside [-1, {n_wm})')
+        tables.append(t)
+    return tables[0], tables[1], int(tiebreak_cg)
+
+
+def _outputs(est, x, tie, want_x, want_tie):
+    out = (est,) + ((x,) if want_x else ()) + ((tie,) if want_tie else ())
+    return out if len(out) > 1 else est
 
 
 def noddi_fused_tiles_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
                             lam1=0.5, lam2=1e-3, stage_iters=None,
                             want_x=False, is_exvivo=False, tiebreak_cg=0,
-                            want_tie=False):
+                            want_tie=False, nb_minus=None, nb_plus=None,
+                            early_exit=False):
     """Plain PyTorch version of the fused solve, on any device.
 
     G1 (C, na, na), G2 (C, n_wm, n_wm), b1 (C, M, na), Y_dwi (C, M, ndwi),
     A2T (C, n_wm, ndwi), iso_dwi (ndwi,), icvf/kappa (n_wm,), all float32.
-    Returns estimates (C, M, 3|4) [NDI, ODI, FWF(, dot)] and, with
-    ``want_x``, the debiased coefficients (C, M, na).  ``tiebreak_cg`` and
-    ``want_tie`` keep the JAX kernel's signature and raise when set."""
-    _reject_unported(tiebreak_cg, want_tie)
+    ``nb_minus``/``nb_plus`` (n_wm,) int: each atom's same-ICVF
+    adjacent-kappa atom (-1 at the grid edge); with them and
+    ``tiebreak_cg`` > 0, stage 2 ends with the tie-break at that CG budget
+    a candidate.  ``early_exit`` as ``StageSchedule`` says.  Returns
+    estimates (C, M, 3|4) [NDI, ODI, FWF(, dot)], then with ``want_x`` the
+    debiased coefficients (C, M, na) and with ``want_tie`` the tie score
+    (C, M), as ``noddi_fused_tiles_pallas`` returns them."""
     _check_inputs(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa)
-    scheds = noddi_schedules(_default_stage_iters(stage_iters))
-    raw, x = _fused_raw_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
-                              float(lam1), float(lam2), scheds,
-                              bool(is_exvivo))
-    est = _finish(raw, is_exvivo)
-    return (est, x) if want_x else est
+    na, n_wm = b1.shape[-1], G2.shape[-1]
+    scheds = noddi_schedules(_default_stage_iters(stage_iters), na, n_wm,
+                             bool(early_exit))
+    tb = _tiebreak_args(tiebreak_cg, nb_minus, nb_plus, n_wm)
+    if tb is not None:
+        tb = (tb[0].to(b1.device), tb[1].to(b1.device), tb[2])
+    raw, x, tie = _fused_raw_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf,
+                                   kappa, float(lam1), float(lam2), scheds,
+                                   bool(is_exvivo), tb, bool(want_tie))
+    return _outputs(_finish(raw, is_exvivo), x, tie, want_x, want_tie)
 
 
 def _default_stage_iters(stage_iters):
@@ -363,21 +450,54 @@ def _default_stage_iters(stage_iters):
 
 
 # ---------------------------------------------------------------- kernel
-def _sched_array(scheds) -> np.ndarray:
-    """Pack three schedules as csrc/noddi_fused.cu reads them: per stage
-    [rounds, add_k, polish, cg[MAX_ROUNDS], inner[MAX_ROUNDS]]."""
-    out = np.zeros((3, 3 + 2 * MAX_ROUNDS), np.int32)
+SCHED_STAGE = 8     # csrc/noddi_fused.cu: header ints of a stage
+
+
+def _general(scheds, tb, want_tie) -> bool:
+    """Whether a launch needs the kernel's general path (csrc/noddi_fused.cu
+    GEN): FISTA, `converge`, `early_exit`, a stage without rounds, the
+    tie-break or the tie score.  The default schedule needs none."""
+    return (tb is not None or bool(want_tie)
+            or any(s.fista or s.cont_cg or s.early_exit or not s.cg
+                   for s in scheds))
+
+
+def _sched_arrays(scheds, tb, general):
+    """Pack three schedules as csrc/noddi_fused.cu reads them: a host
+    header, per stage [rounds, add_k, polish, fista, cont_cg, cont_rounds,
+    cont_inner, offset], then [early_exit, tiebreak_cg, general]; and the
+    per-round table, (cg, inner) for each round of the three stages one
+    after the other (stage s's rounds from pair ``offset``)."""
+    head = np.zeros(3 * SCHED_STAGE + 3, np.int32)
+    rounds, off = [], 0
     for s, sch in enumerate(scheds):
         r = len(sch.cg)
-        out[s, :3] = (r, sch.add_k, sch.polish)
-        out[s, 3:3 + r] = sch.cg
-        out[s, 3 + MAX_ROUNDS:3 + MAX_ROUNDS + r] = sch.inner
-    return out
+        head[s * SCHED_STAGE:(s + 1) * SCHED_STAGE] = (
+            r, sch.add_k, sch.polish, sch.fista if s < 2 else 0,
+            sch.cont_cg, sch.cont_rounds, max(sch.inner, default=0), off)
+        rounds += [v for pair in zip(sch.cg, sch.inner) for v in pair]
+        off += r
+    head[3 * SCHED_STAGE:] = (int(scheds[0].early_exit),
+                              0 if tb is None else tb[2], int(general))
+    return head, np.asarray(rounds or [0, 0], np.int32)
+
+
+_ROUND_TABLES: dict = {}
+
+
+def _round_table(table: np.ndarray, device) -> torch.Tensor:
+    """The per-round table on ``device``, uploaded once per content and
+    card and kept (a few hundred bytes): a launch then copies nothing."""
+    key = (device.index, table.tobytes())
+    t = _ROUND_TABLES.get(key)
+    if t is None:
+        t = _ROUND_TABLES[key] = torch.tensor(table, device=device)
+    return t
 
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NODDI_LAUNCH = Launcher('noddi_fused_launch',
-                         [_vp] * 11 + [_ci] * 6 + [_cf, _cf, _vp])
+                         [_vp] * 15 + [_ci] * 6 + [_cf, _cf, _vp])
 _QP_LAUNCH = Launcher('nneg_qp_launch',
                       [_vp] * 6 + [_ci] * 3 + [_cf, _cf, _vp])
 
@@ -386,9 +506,17 @@ def _max_smem(device) -> int:
     return entry('cuda_max_smem', [_ci])(device.index)
 
 
+def noddi_scratch_words(na: int, n_wm: int, general: bool) -> int:
+    """Scratch floats a voxel (csrc/noddi_fused.cu Params): stage 1's x and
+    stage 2's support words; on the general path also the voxel's x, FISTA's
+    z and t, b2 and a working-set word a lane between rounds."""
+    return na + SUP_WORDS + ((2 * na + 1 + n_wm + 32) if general else 0)
+
+
 def noddi_fused_tiles(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
                       lam1=0.5, lam2=1e-3, stage_iters=None, want_x=False,
-                      is_exvivo=False, tiebreak_cg=0, want_tie=False):
+                      is_exvivo=False, tiebreak_cg=0, want_tie=False,
+                      nb_minus=None, nb_plus=None, early_exit=False):
     """Fused 3-stage NODDI solve: the CUDA kernel for CUDA tensors, the
     twin for CPU tensors.  Same arguments and returns as
     :func:`noddi_fused_tiles_torch`; ``A2T`` may have any strides (the
@@ -399,15 +527,17 @@ def noddi_fused_tiles(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
         return noddi_fused_tiles_torch(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf,
                                        kappa, lam1, lam2, stage_iters,
                                        want_x, is_exvivo, tiebreak_cg,
-                                       want_tie)
+                                       want_tie, nb_minus, nb_plus,
+                                       early_exit)
     if b1.device.type != 'cuda':
         raise ValueError(f'unsupported device {b1.device}')
-    _reject_unported(tiebreak_cg, want_tie)
     _check_inputs(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa)
-    scheds = noddi_schedules(_default_stage_iters(stage_iters))
     C, M, na = b1.shape
     n_wm = G2.shape[-1]
     ndwi = Y_dwi.shape[-1]
+    scheds = noddi_schedules(_default_stage_iters(stage_iters), na, n_wm,
+                             bool(early_exit))
+    tb = _tiebreak_args(tiebreak_cg, nb_minus, nb_plus, n_wm)
     if na > MAX_ATOMS:
         raise NotImplementedError(f'the kernel takes at most {MAX_ATOMS} '
                                   f'atoms, got {na}')
@@ -421,25 +551,31 @@ def noddi_fused_tiles(G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
         raise NotImplementedError(
             f'the kernel needs {smem} bytes of shared memory for a Gram of '
             f'{na} atoms; the card allows {smem_max}')
-    est = torch.empty((C, M, 4), dtype=torch.float32, device=b1.device)
-    x = torch.empty((C, M, na), dtype=torch.float32, device=b1.device) \
+    dev = b1.device
+    est = torch.empty((C, M, 4), dtype=torch.float32, device=dev)
+    x = torch.empty((C, M, na), dtype=torch.float32, device=dev) \
         if want_x else None
+    tie = torch.empty((C, M), dtype=torch.float32, device=dev) \
+        if want_tie else None
     if C * M > 0:
-        sched = _sched_array(scheds)        # held across the call
+        general = _general(scheds, tb, want_tie)
+        head, table = _sched_arrays(scheds, tb, general)  # held across the call
+        rtab = _round_table(table, dev)
+        nbs = [None, None] if tb is None else \
+            [t.to(dev, torch.int32).contiguous() for t in tb[:2]]
         A2 = A2T.transpose(-1, -2).contiguous()
-        # stage 1's x, then stage 2's support words
-        scratch = torch.empty(C * M * (na + SUP_WORDS), dtype=torch.float32,
-                              device=b1.device)
+        scratch = torch.empty(C * M * noddi_scratch_words(na, n_wm, general),
+                              dtype=torch.float32, device=dev)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         _NODDI_LAUNCH(
-            b1.device, G1.data_ptr(), G2.data_ptr(), b1.data_ptr(),
+            dev, G1.data_ptr(), G2.data_ptr(), b1.data_ptr(),
             Y_dwi.data_ptr(), A2.data_ptr(), iso_dwi.data_ptr(),
-            icvf.data_ptr(), kappa.data_ptr(), est.data_ptr(),
-            x.data_ptr() if want_x else None, scratch.data_ptr(), C, M, na,
-            n_wm, ndwi, int(bool(is_exvivo)), float(lam1), float(lam2),
-            sched.ctypes.data)
+            icvf.data_ptr(), kappa.data_ptr(), ptr(nbs[0]), ptr(nbs[1]),
+            est.data_ptr(), ptr(x), ptr(tie), scratch.data_ptr(),
+            rtab.data_ptr(), C, M, na, n_wm, ndwi, int(bool(is_exvivo)),
+            float(lam1), float(lam2), head.ctypes.data)
         noddi_fused_tiles.launches += 1
-    out = _finish(est, is_exvivo)
-    return (out, x) if want_x else out
+    return _outputs(_finish(est, is_exvivo), x, tie, want_x, want_tie)
 
 
 noddi_fused_tiles.launches = 0

@@ -463,6 +463,70 @@ def czb_voxels(n: int, kernels: dict, htable: np.ndarray, seed: int = 0):
     return y, DIRs, lut_idx, W
 
 
+def demo_sandi(scheme: Scheme | None = None, kernels_dir: str | None = None):
+    """Build the port's SANDI model + resampled KERNELS + hash table on
+    ``scheme`` (default :func:`czb_scheme`, whose two shells' directional
+    average is the JAX bench's SANDI protocol: b0 + b = 3000 and 6000
+    s/mm^2 at Delta = 35 ms, delta = 15 ms), cached in ``kernels_dir`` as
+    :func:`demo_noddi` caches its atoms."""
+    from .models import SANDI
+    return _demo_model(SANDI(), scheme or czb_scheme(), kernels_dir)
+
+
+def sandi_voxels(n: int, kernels: dict, seed: int = 0):
+    """Random SANDI mixtures of the un-normalised atoms + noise,
+    ``tests/test_models.py::test_sandi_fit_parity``'s recipe (weights
+    U(0,1) on ~30% of the atoms, +0.5 on one atom, normalised; 0.002
+    Gaussian noise, clipped at 0), drawn in bulk.  The atoms are isotropic,
+    so a voxel's signal is the same on every direction of a shell.
+    Returns (y (n, nS), weights W (n, n_atoms))."""
+    rng = np.random.RandomState(seed)
+    A = kernels['signal'] / kernels['norms'][None, :]    # un-normalised
+    na = A.shape[1]
+    W = rng.rand(n, na) * (rng.rand(n, na) < 0.3)
+    W[np.arange(n), rng.randint(na, size=n)] += 0.5
+    W /= np.maximum(W.sum(1, keepdims=True), 1e-9)
+    y = W @ A.T
+    y = np.clip(y + 0.002 * rng.randn(*y.shape), 0, None)
+    return y, W
+
+
+def sandi_oracle_maps(model, kernels: dict, y: np.ndarray) -> np.ndarray:
+    """The six SANDI maps of the exact non-negative elastic net
+    ``ops.native.lasso(A, y, lambda1, lambda2)`` (LARS) on one voxel's
+    (direction-averaged) signal, un-normalised by the KERNELS' norms, as
+    the JAX bench's SANDI oracle computes them."""
+    from .ops import native
+    n_rs, n_in = len(model.Rs), len(model.d_in)
+    x = native.lasso(np.asarray(kernels['signal'], np.float64),
+                     np.asarray(y, np.float64),
+                     float(model.solver_params['lambda1']),
+                     float(model.solver_params['lambda2'])) * kernels['norms']
+    xs = x.sum() + 1e-16
+    xsph, xstk = x[:n_rs].sum(), x[n_rs:n_rs + n_in].sum()
+    xiso = x[n_rs + n_in:].sum()
+    return np.array([
+        xsph / xs, xstk / xs, xiso / xs,
+        1e6 * np.sum(model.Rs * x[:n_rs]) / (xsph + 1e-16),
+        1e3 * np.sum(model.d_in * x[n_rs:n_rs + n_in]) / (xstk + 1e-16),
+        1e3 * np.sum(model.d_isos * x[n_rs + n_in:]) / (xiso + 1e-16)])
+
+
+def sandi_oracle_audit(evaluation, n: int = 1000,
+                       seed: int = 0) -> np.ndarray:
+    """|fitted - oracle| of fsoma, fneurite, fextra and Rsoma (um), (n, 4),
+    for ``n`` voxels of a fitted SANDI ``Evaluation``, sampled with
+    ``seed``, against :func:`sandi_oracle_maps` on each voxel's signal, as
+    the JAX bench audits SANDI (its ``oracle_cols`` 0-3)."""
+    y = np.asarray(evaluation.y, np.float64)
+    maps = evaluation.RESULTS['MAPs'][evaluation.niiMASK_img == 1]
+    rng = np.random.RandomState(seed)
+    sel = rng.choice(y.shape[0], size=min(n, y.shape[0]), replace=False)
+    ref = np.stack([sandi_oracle_maps(evaluation.model, evaluation.KERNELS,
+                                      y[i]) for i in sel])
+    return np.abs(maps[sel][:, :4] - ref[:, :4])
+
+
 def czb_tile_inputs(model, kernels, htable, device, n_tiles: int,
                     seed: int = 0) -> list:
     """The tile QP's inputs [G, b, L] for the first ``n_tiles`` 128-voxel

@@ -22,9 +22,13 @@ K1 (the first 512-tile launch, in vivo) and K2 (the first 512-tile
 launch of FreeWater Human, Mouse and CZB) are timed with CUDA events,
 the variants in turns: A B ... B A, ``--reps`` times over.
 
-A CSRC_DIR whose ``noddi_fused.cu`` takes a scratch buffer (this tree's)
-gets the stage-2 dictionary in (ndwi, n_wm) layout; an older one gets it
-transposed, as it did then.
+K1's C entry point has changed twice; a variant's is told by words in its
+``noddi_fused.cu``: ``rtab`` (this tree's: a per-round table on the
+device, the tie-break's tables and the tie score), else ``scratch`` (the
+stage-2 dictionary in (ndwi, n_wm) layout and a scratch buffer, with the
+per-round budgets in the host schedule), else the first one (the
+dictionary transposed).  Each gets the production schedule packed its
+way.
 
 ``--count`` counts the work K1 and K2 need on these inputs
 (:func:`amico_tpu_torch.testing.solve_work` on the first launch of each).
@@ -64,7 +68,9 @@ class Variant:
         self.csrc = os.path.abspath(csrc)
         self.flags = flags.split()
         with open(os.path.join(self.csrc, 'noddi_fused.cu')) as f:
-            self.scratch = 'scratch' in f.read()
+            text = f.read()
+        self.rtab = 'rtab' in text
+        self.scratch = self.rtab or 'scratch' in text
         out = os.path.join(os.path.dirname(cuda_build.BUILD_ROOT),
                            'kernel_bench', self.label, 'lib.so')
         t0 = time.time()
@@ -80,16 +86,19 @@ class Variant:
             log(text)
         lib = ctypes.CDLL(out)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.noddi_fused_launch.argtypes = [vp] * (11 if self.scratch
-                                                  else 10) \
+        lib.noddi_fused_launch.argtypes = [vp] * (
+            15 if self.rtab else 11 if self.scratch else 10) \
             + [ci] * 6 + [cf, cf, vp, vp]
         lib.noddi_fused_launch.restype = ci
         lib.nneg_qp_launch.argtypes = [vp] * 6 + [ci] * 3 + [cf, cf, vp, vp]
         lib.nneg_qp_launch.restype = ci
         self.lib = lib
 
-    def k1(self, args, exvivo, sched, want_x=True):
+    def k1(self, args, exvivo, scheds, want_x=True):
+        """K1 on ``args`` under ``scheds`` (the production schedule's
+        ``cuda_qp.noddi_schedules``), through this variant's entry point."""
         import torch
+        from amico_tpu_torch.ops import cuda_qp
         G1, G2, b1, Y, A2T, iso, icvf, kappa = args
         C, M, na = b1.shape
         n_wm, ndwi = A2T.shape[1:]
@@ -100,12 +109,21 @@ class Variant:
             ptrs.append(A2T.transpose(1, 2).contiguous())
         else:
             ptrs.append(A2T)
-        ptrs += [iso, icvf, kappa, est, x]
-        if self.scratch:
-            ptrs.append(torch.empty(C * M * (na + 5), device='cuda'))
+        ptrs += [iso, icvf, kappa]
+        if self.rtab:
+            head, table = cuda_qp._sched_arrays(scheds, None, False)
+            rtab = cuda_qp._round_table(table, b1.device)
+            ptrs += [None, None, est, x, None, torch.empty(
+                C * M * cuda_qp.noddi_scratch_words(na, n_wm, False),
+                device='cuda'), rtab]
+        else:
+            head = legacy_sched(scheds)
+            ptrs += [est, x]
+            if self.scratch:
+                ptrs.append(torch.empty(C * M * (na + 5), device='cuda'))
         err = self.lib.noddi_fused_launch(
             *[None if t is None else t.data_ptr() for t in ptrs],
-            C, M, na, n_wm, ndwi, int(exvivo), 0.5, 1e-3, sched.ctypes.data,
+            C, M, na, n_wm, ndwi, int(exvivo), 0.5, 1e-3, head.ctypes.data,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f'[{self.label}] K1 launch failed: {err}')
@@ -123,6 +141,18 @@ class Variant:
         if err:
             raise RuntimeError(f'[{self.label}] K2 launch failed: {err}')
         return x
+
+
+def legacy_sched(scheds, max_rounds=32):
+    """The production schedule as the older entry points read it: per stage
+    [rounds, add_k, polish, cg[32], inner[32]]."""
+    out = np.zeros((3, 3 + 2 * max_rounds), np.int32)
+    for s, sch in enumerate(scheds):
+        r = len(sch.cg)
+        out[s, :3] = (r, sch.add_k, sch.polish)
+        out[s, 3:3 + r] = sch.cg
+        out[s, 3 + max_rounds:3 + max_rounds + r] = sch.inner
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -238,10 +268,10 @@ def bench_kernels(variants, reps, count, tail, tmp, record):
     from amico_tpu_torch.models.base import DEFAULT_NODDI_STAGE_ITERS
     from amico_tpu_torch.ops import cuda_qp
     from amico_tpu_torch.testing import qp_tail, solve_work, tail_histogram
-    sched = cuda_qp._sched_array(cuda_qp.noddi_schedules(
-        DEFAULT_NODDI_STAGE_ITERS))
     ref = variants[0]
     for exvivo, args in k1_inputs(tmp):
+        sched = cuda_qp.noddi_schedules(DEFAULT_NODDI_STAGE_ITERS,
+                                        args[2].shape[-1], args[1].shape[-1])
         outs = {}
         for v in variants:
             res = [v.k1(c, exvivo, sched) for c in chunks(args)]

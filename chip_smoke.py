@@ -53,7 +53,19 @@ Phases; any failure exits non-zero and prints no result line:
    times, the `converge` tail);
 10. NODDI with backend='xla' (the stagewise solve) on phase 4's subject:
    its maps against the fused path's by distribution, and the oracle audit
-   at phase 4's bounds.
+   at phase 4's bounds;
+11. K1a (right after phase 3, on the first 512 tiles of its in-vivo
+   inputs): the fused kernel's general path against its twin under each
+   route beyond the production schedule (the iteration knobs' FISTA
+   schedule, stage-2 `converge` True and 24, the tie-break, the tie score,
+   early_exit) at phase 3's bounds, each timed in turns with the default
+   schedule;
+12. SANDI main path: a 409,600-voxel subject on the bench's SANDI protocol
+   (phase 8's scheme, direction-averaged to b0 + 2 shells by load_data
+   with doDirectionalAverage) through Evaluation(device='cuda'),
+   load_data -> save_results(save_dir_avg=True) on the stagewise solver:
+   first and second fit, CUDA kernels a chunk (torch.profiler), the
+   written files, an exact-oracle audit of 1,000 voxels.
 
 The kernels are built in phase 2; every launch count is read from the main
 path's run alone (counts set to 0 just before it).  Each kernel's bound is
@@ -168,6 +180,24 @@ CZB_DIRS_AGREE = 0.999
 # max 3.3e-2 and 6.1% off, on 2,048 voxels of this protocol (CPU); the
 # stage-2 vertex is degenerate below f32 resolution
 NODDI_XLA_MEDIAN, NODDI_XLA_P95, NODDI_XLA_SHARE_OFF = 5e-5, 5e-3, 0.1
+# K1's general path (the routes beyond the production schedule) against
+# its twin: K1's bounds above, and for the want_tie score a median gap.
+# The iteration knobs' schedule (FISTA 40, then 8 flat rounds, on the full
+# grid) is itself sensitive to summation order: the Pallas kernel against
+# itself with its WM atoms reordered reads maps median 1.12e-3, p95 5.5e-3
+# on 2 x 128 voxels of tests/test_torch_noddi_fused.py's inputs (CPU; the
+# production schedule 5.6e-6, 2.2e-3), and K1 against its twin read 9.5e-4,
+# 4.95e-3, objective p99 2.4e-3, worse on 1.3% of voxels (H100).  Its
+# bounds (map median, p95, objective p99, share worse), from those readings:
+K1A_TIE_MEDIAN = 1e-4
+K1A_KNOBS_BOUNDS = (5e-3, 2e-2, 1e-2, 5e-2)
+# SANDI oracle audit (fsoma, fneurite, fextra; Rsoma in um) against
+# native.lasso(A, y, 0, 5e-3) on the bench's columns 0-3: the JAX package's
+# facade read fractions median 1.21e-5, p95 3.59e-5, max 7.73e-5 and Rsoma
+# 1.13e-4, 4.30e-4, 1.77e-3 on 1,000 of 2,048 voxels of this protocol (CPU;
+# tests/test_torch_sandi.py); bounds about ten times those.  (median, p95,
+# max)
+SANDI_AUDIT = {'fractions': (1e-4, 5e-4, 5e-3), 'Rsoma': (1e-3, 5e-3, 5e-2)}
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores (the kernels compute
 # in float32 on the CUDA cores)
@@ -279,6 +309,7 @@ def phase_kernel_vs_twin(scheme, kernels, htable):
         worst = max(worst, a['map_max'])
         if not exvivo:
             first = next(chunks(args))
+            k1a_args = [a.clone() for a in first]
             ms = cuda_ms(lambda: noddi_fused_tiles(*first), 5)
             plain_ms = cuda_ms(lambda: noddi_fused_tiles_torch(*first), 2)
             _, work = solve_work(noddi_fused_tiles_torch, *first)
@@ -294,7 +325,71 @@ def phase_kernel_vs_twin(scheme, kernels, htable):
                 f'{work["rows"] / work["matvecs"]:.3g} rows each): bound '
                 f'{b[0]:.4f} ms ({b[1]}), {b[0] / ms:.2%} of it reached')
         del args, out_k, out_t
-    return worst, times
+    return worst, times, k1a_args
+
+
+def phase_k1a(args, kernels):
+    """K1's general path against its twin on the first 512 tiles of phase
+    3's in-vivo inputs, one launch each, under each route the JAX kernel
+    has beyond the production schedule; each route's ms a launch in turns
+    with the default schedule."""
+    import torch
+    from amico_tpu_torch.models.noddi import _kappa_neighbours
+    from amico_tpu_torch.ops.cuda_qp import (noddi_fused_tiles,
+                                             noddi_fused_tiles_torch)
+    from amico_tpu_torch.testing import fused_agreement
+    from amico_tpu_torch.models.base import DEFAULT_NODDI_STAGE_ITERS
+    nbm, nbp = _kappa_neighbours(kernels['icvf'], kernels['kappa'])
+    prod1, prod2, prod3 = DEFAULT_NODDI_STAGE_ITERS
+    routes = {
+        'knobs (fista 40, 8 rounds, cg 12)': dict(
+            stage_iters=((40, 8, 12, 2), (40, 8, 12, 2), (8, 12, 2))),
+        'stage-2 converge=True': dict(
+            stage_iters=(prod1, prod2[:4] + (True,) + prod2[5:], prod3)),
+        'stage-2 converge=24': dict(
+            stage_iters=(prod1, prod2[:4] + (24,) + prod2[5:], prod3)),
+        'tiebreak_cg=8': dict(tiebreak_cg=8, nb_minus=nbm, nb_plus=nbp),
+        'want_tie': dict(want_tie=True),
+        'early_exit': dict(early_exit=True),
+    }
+    rows = {}
+    for name, kw in routes.items():
+        noddi_fused_tiles.launches = 0
+        out_k = noddi_fused_tiles(*args, want_x=True, **kw)
+        launches = noddi_fused_tiles.launches
+        out_t = noddi_fused_tiles_torch(*args, want_x=True, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out_k[0]).all()),
+              f'K1 maps not finite ({name})')
+        a = fused_agreement(args, out_k[:2], out_t[:2])
+        tie_gap = float((out_k[2] - out_t[2]).abs().median()) \
+            if 'want_tie' in kw else None
+        ms = {'default': [], name: []}
+        for k in ('default', name, name, 'default'):
+            fn = (lambda: noddi_fused_tiles(*args)) if k == 'default' \
+                else (lambda: noddi_fused_tiles(*args, **kw))
+            ms[k].append(cuda_ms(fn, 3))
+        twin_ms = cuda_ms(lambda: noddi_fused_tiles_torch(*args, **kw), 1)
+        rows[name] = (float(np.mean(ms[name])), float(np.mean(ms['default'])),
+                      twin_ms)
+        log(f'K1a {name} ({args[0].shape[0]} tiles x 128 voxels): kernel vs '
+            f'twin maps median {a["map_median"]:.3g} p95 {a["map_p95"]:.3g} '
+            f'max {a["map_max"]:.3g}; objective gap p99 '
+            f'{a["obj_gap_p99"]:.3g}, worse on {a["obj_share_worse"]:.4g}'
+            + ('' if tie_gap is None else
+               f'; tie score median gap {tie_gap:.3g}')
+            + f'; launches {launches}; {rows[name][0]:.3f} ms a launch '
+            f'against the default schedule\'s {rows[name][1]:.3f} (CUDA '
+            f'events, in turns: {ms}); twin {twin_ms:.3f} ms')
+        check(launches == 1, f'K1a {name}: {launches} launches')
+        med, p95, p99, worse = K1A_KNOBS_BOUNDS if name.startswith('knobs') \
+            else (KERNEL_MAP_MEDIAN, KERNEL_MAP_P95, KERNEL_OBJ_P99,
+                  KERNEL_OBJ_WORSE)
+        check(a['map_median'] < med and a['map_p95'] < p95
+              and a['obj_gap_p99'] < p99 and a['obj_share_worse'] < worse
+              and (tie_gap is None or tie_gap < K1A_TIE_MEDIAN),
+              f'K1 disagrees with its twin on the route {name}')
+    return rows
 
 
 def phase_main_path(study, lut_true):
@@ -805,6 +900,86 @@ def phase_czb_pallas(ev, maps_auto):
         lambda: nneg_qp_tiles(G, b, None, 0.0, 4.0, **kw_off)))
 
 
+def phase_sandi(study):
+    """SANDI through Evaluation(device='cuda') with doDirectionalAverage:
+    first and second fit, launches per chunk (torch.profiler over one
+    chunk's fit), the written files and the oracle audit."""
+    import torch
+    import amico_tpu_torch
+    from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
+    from amico_tpu_torch.ops.loc_probe import loc_probe
+    from amico_tpu_torch.testing import sandi_oracle_audit
+    nneg_qp_tiles.launches = noddi_fused_tiles.launches = 0
+    loc_probe.launches = 0
+    t0 = time.time()
+    ev = amico_tpu_torch.Evaluation(study, 'subj', device='cuda')
+    ev.set_config('doDirectionalAverage', True)
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    check(ev.scheme.nS == 3, f'directional average gave {ev.scheme.nS} rows')
+    ev.set_model('SANDI')
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    n_vox = int(np.count_nonzero(ev.niiMASK_img == 1))
+    fits = []
+    for fit in ('first', 'second'):
+        t_fit = time.time()
+        ev.fit()
+        fits.append(time.time() - t_fit)
+        log(f'SANDI {fit} fit: {n_vox} voxels in {fits[-1]:.3f} s = '
+            f'{n_vox / fits[-1]:.0f} voxels/s; fit breakdown (s): '
+            + json.dumps({k: round(v, 4)
+                          for k, v in ev._last_fit_facade_timers.items()})
+            + ' engine: ' + json.dumps(
+                {k: round(v, 4) if isinstance(v, float) else v
+                 for k, v in ev.model._last_fit_timers.items()}))
+    ev.save_results(save_dir_avg=True)
+    log(f'SANDI main path: {time.time() - t0:.2f} s end to end')
+    # one chunk's fit under the profiler (which slows the host tenfold)
+    from types import SimpleNamespace
+    chunk = ev.model._stage_cache[0][1]
+    one = SimpleNamespace(y=ev.y[:chunk], KERNELS=ev.KERNELS,
+                          get_config={'device': 'cuda',
+                                      'voxels_per_chunk': chunk}.get)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ev.model.fit(one)
+    n_chunks = ev.model._last_fit_timers['n_chunks']
+    check(n_chunks == 1, f'the profiled fit ran {n_chunks} chunks')
+    events = prof.key_averages()
+    kernels = sum(e.count for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(('Memcpy', 'Memset')))
+    launch_calls = sum(e.count for e in events
+                       if e.key in ('cudaLaunchKernel', 'cuLaunchKernel',
+                                    'cudaLaunchKernelExC'))
+    log(f'SANDI launches: {kernels} CUDA kernels on the card '
+        f'({launch_calls} launch calls on the host) in one chunk of '
+        f'{chunk} voxels; '
+        f'K1 {noddi_fused_tiles.launches}, K2 {nneg_qp_tiles.launches}, T1 '
+        f'{loc_probe.launches} (none is on this path)')
+    check(kernels > 0 or launch_calls > 0, 'the SANDI fit ran nothing on '
+          'the card')
+    maps = ev.RESULTS['MAPs'][ev.niiMASK_img == 1]
+    check(maps.shape == (n_vox, 6), f'SANDI maps shape {maps.shape}')
+    check(bool(np.isfinite(maps).all()), 'SANDI maps not finite')
+    check(bool((maps[:, :3] >= 0).all() and (maps[:, :3] <= 1 + 1e-6).all()),
+          'SANDI fractions outside [0, 1]')
+    out = os.path.join(study, 'subj', 'AMICO', 'SANDI')
+    for name in ('fit_fsoma.nii.gz', 'fit_fneurite.nii.gz',
+                 'fit_fextra.nii.gz', 'fit_Rsoma.nii.gz', 'fit_Din.nii.gz',
+                 'fit_De.nii.gz', 'dir_avg_signal.nii.gz', 'dir_avg.scheme'):
+        check(os.path.isfile(os.path.join(out, name)), f'{name} not written')
+    t_a = time.time()
+    err = sandi_oracle_audit(ev, n=1000, seed=0)
+    for cols, key in ((slice(0, 3), 'fractions'), (slice(3, 4), 'Rsoma')):
+        got = map_err(err[:, cols], 0.0)
+        log(f'SANDI oracle audit (1000 voxels, {time.time() - t_a:.1f} s), '
+            f'{key}: median {got[0]:.3g} p95 {got[1]:.3g} max {got[2]:.3g}')
+        check(all(g < b for g, b in zip(got, SANDI_AUDIT[key])),
+              f'SANDI oracle audit of {key} outside its bounds')
+
+
 def phase_noddi_xla(study, maps_fused):
     """NODDI with backend='xla' on phase 4's subject, against the fused
     path's maps and the exact oracle."""
@@ -866,8 +1041,9 @@ def main():
     import amico_tpu_torch
     from amico_tpu_torch.testing import (czb_scheme, czb_voxels, demo_czb,
                                          demo_freewater, demo_noddi,
-                                         demo_scheme, demo_voxels,
-                                         freewater_voxels, write_demo_subject)
+                                         demo_sandi, demo_scheme, demo_voxels,
+                                         freewater_voxels, sandi_voxels,
+                                         write_demo_subject)
     amico_tpu_torch.set_verbose(1)
     torch.manual_seed(0)
     name, smi = phase_device()
@@ -882,8 +1058,10 @@ def main():
         _, kernels, htable = demo_noddi(scheme, small=False,
                                         kernels_dir=os.path.join(tmp, 'k'))
         log(f'full-grid kernels: {time.time() - t0:.1f} s')
-        max_err, (ms, plain_ms, bound_ms, bound_by) = phase_kernel_vs_twin(
-            scheme, kernels, htable)
+        max_err, (ms, plain_ms, bound_ms, bound_by), k1a_args = \
+            phase_kernel_vs_twin(scheme, kernels, htable)
+        phase_k1a(k1a_args, kernels)
+        del k1a_args
         study = os.path.join(tmp, 'study')
         t0 = time.time()
         y, _, lut_true = demo_voxels(N_VOXELS, kernels, htable, seed=7)
@@ -927,6 +1105,16 @@ def main():
         phase_czb_pallas(ev, czb_maps)
         del ev
         phase_noddi_xla(noddi_study, noddi_maps)
+        t0 = time.time()
+        _, sandi_kernels, _ = demo_sandi(czb_scheme(),
+                                         os.path.join(tmp, 'sandi'))
+        study = os.path.join(tmp, 'study_sandi')
+        y, _ = sandi_voxels(N_VOXELS, sandi_kernels, seed=7)
+        write_demo_subject(os.path.join(study, 'subj'), czb_scheme(), y,
+                           VOL_DIM)
+        del y
+        log(f'SANDI subject written: {time.time() - t0:.1f} s')
+        phase_sandi(study)
     from amico_tpu_torch.ops import native
     check(native.available(), "the port's native host library did not load")
     loaded = sorted(m for m in sys.modules

@@ -168,18 +168,77 @@ def test_launcher_raises_on_a_refused_launch(cuda):
     torch.cuda.synchronize()
 
 
+# K1's general path (csrc/noddi_fused.cu GEN) on each route the JAX kernel
+# has beyond the production schedule; chip_smoke.py's K1a phase at 16 tiles
+_PROD = ((0, 4, (4, 6, 8, 10), 1, False, 2),
+         (0, 6, (3, 5, 8, 10, 12, 14), (1, 1, 2, 2, 2, 2), False, 2),
+         (6, (16, 10, 8, 8, 8, 8), 2))
+K1_ROUTES = {
+    'fista-stage1': dict(stage_iters=((40, 4, 8, 1),) + _PROD[1:]),
+    'converge-stage1': dict(stage_iters=((0, 4, 8, 1, True),) + _PROD[1:]),
+    'knobs': dict(stage_iters=((40, 8, 12, 2), (40, 8, 12, 2), (8, 12, 2))),
+    'converge-stage2': dict(stage_iters=(_PROD[0], (0, 3, (3, 3, 4), 2, 24),
+                                         _PROD[2])),
+    'zero-round-stage1': dict(stage_iters=((0, 0, 8, 1),) + _PROD[1:]),
+    'early-exit': dict(early_exit=True),
+    'tiebreak': dict(tiebreak_cg=8),
+    'want_tie': dict(want_tie=True),
+}
+
+
+def _neighbours(problem, grid):
+    from amico_tpu_torch.models.noddi import _kappa_neighbours
+    kernels = problem[1][grid][1]
+    return _kappa_neighbours(kernels['icvf'], kernels['kappa'])
+
+
+@pytest.mark.parametrize('route', list(K1_ROUTES))
+def test_kernel_matches_twin_on_solver_routes(problem, route):
+    """Each route, once a raise, against the twin on the card at K1's
+    agreement bounds (test_kernel_matches_twin's); the tie score by a
+    median gap < 1e-4."""
+    from amico_tpu_torch.testing import fused_agreement
+    args = _inputs(problem, 'full', False, 16)
+    kw = dict(K1_ROUTES[route], want_x=True)
+    if route == 'tiebreak':
+        kw['nb_minus'], kw['nb_plus'] = _neighbours(problem, 'full')
+    before = noddi_fused_tiles.launches
+    out_k = noddi_fused_tiles(*args, **kw)
+    out_t = noddi_fused_tiles_torch(*args, **kw)
+    torch.cuda.synchronize()
+    assert noddi_fused_tiles.launches == before + 1
+    assert bool(torch.isfinite(out_k[0]).all())
+    if route == 'want_tie':
+        gap = (out_k[2] - out_t[2]).abs()
+        assert float(gap.median()) < 1e-4, float(gap.median())
+    a = fused_agreement(args, out_k[:2], out_t[:2])
+    assert a['map_median'] < 1e-5 and a['map_p95'] < 5e-3, a
+    assert a['obj_gap_p99'] < 1e-3 and a['obj_share_worse'] < 1e-3, a
+
+
+@pytest.mark.parametrize('exvivo', [False, True])
+def test_general_path_agrees_with_the_default(problem, exvivo):
+    """The tie score sends the production schedule down the general path
+    (voxel state in device memory between phases, lambda2 a run-time value
+    on every stage), which runs the default path's operations: the maps
+    and x at K1's agreement bounds (the compiler fuses multiplies and adds
+    differently in the two, so the degenerate voxels may move)."""
+    from amico_tpu_torch.testing import fused_agreement
+    args = _inputs(problem, 'full', exvivo, 8)
+    out = noddi_fused_tiles(*args, want_x=True, is_exvivo=exvivo)
+    est_g, x_g, tie = noddi_fused_tiles(*args, want_x=True, want_tie=True,
+                                        is_exvivo=exvivo)
+    assert tie.shape == est_g.shape[:2] and bool(torch.isfinite(tie).all())
+    a = fused_agreement(args, (est_g, x_g), out)
+    assert a['map_median'] < 1e-5, a
+    assert a['obj_gap_p99'] < 1e-3 and a['obj_share_worse'] < 1e-2, a
+
+
 def test_kernel_rejects_what_it_does_not_take(problem):
     args = _inputs(problem, 'small', False, 2)
-    with pytest.raises(NotImplementedError, match='FISTA'):
-        noddi_fused_tiles(*args, stage_iters=((40, 4, 8, 1),
-                                              (0, 6, 8, 1), (6, 8, 2)))
-    with pytest.raises(NotImplementedError, match='converge'):
-        noddi_fused_tiles(*args, stage_iters=((0, 4, 8, 1, True),
-                                              (0, 6, 8, 1), (6, 8, 2)))
-    with pytest.raises(NotImplementedError, match='tie-break'):
-        noddi_fused_tiles(*args, tiebreak_cg=8)
-    with pytest.raises(NotImplementedError, match='want_tie'):
-        noddi_fused_tiles(*args, want_tie=True)
+    with pytest.raises(ValueError, match='nb_minus'):
+        noddi_fused_tiles(*args, tiebreak_cg=8, nb_minus=[0] * 5,
+                          nb_plus=[0] * 5)
     strided = list(args)
     strided[2] = args[2].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match='contiguous'):

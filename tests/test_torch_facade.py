@@ -148,16 +148,53 @@ def test_principal_directions_default_to_the_card():
 
 
 def test_model_zoo(tmp_path):
+    """All six models of the JAX package: the four that fit are set; the
+    two kernel-only ones raise from their set_solver as the JAX package's
+    facade does."""
+    import amico_tpu
     import amico_tpu_torch
     ev = amico_tpu_torch.Evaluation(str(tmp_path), 'subj', device='cpu')
-    for name in ('NODDI', 'FreeWater', 'CylinderZeppelinBall'):
+    ev_j = amico_tpu.Evaluation(str(tmp_path), 'subj')
+    for name in ('NODDI', 'FreeWater', 'CylinderZeppelinBall', 'SANDI'):
         ev.set_model(name)
-        assert ev.model.id == name
-    for name in ('SANDI', 'StickZeppelinBall', 'VolumeFractions'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ev.set_model(name)
+        ev_j.set_model(name)
+        assert ev.model.id == ev_j.model.id == name
+        assert ev.model.maps_name == ev_j.model.maps_name
+        assert ev.get_config('solver_params') == \
+            ev_j.get_config('solver_params')
+    for name in ('StickZeppelinBall', 'VolumeFractions'):
+        for e, err in ((ev, amico_tpu_torch.AmicoError),
+                       (ev_j, amico_tpu.AmicoError)):
+            with pytest.raises(err, match='Not implemented'):
+                e.set_model(name)
+        assert ev.model.id == ev_j.model.id == name
     with pytest.raises(amico_tpu_torch.AmicoError):
         ev.set_model('NoSuchModel')
+
+
+def test_top_level_api_matches_the_jax_packages():
+    """Every name of amico_tpu.__all__, and the submodules a reference
+    script reaches as attributes, resolve on the port to the port's own
+    objects; preproc raises until it is ported."""
+    import amico_tpu
+    import amico_tpu_torch
+    for name in amico_tpu.__all__ + ['util', 'scheme', 'synthesis', 'lut']:
+        obj = getattr(amico_tpu_torch, name)
+        mod = getattr(obj, '__module__', None) or obj.__name__ \
+            if not isinstance(obj, str) else 'amico_tpu_torch'
+        assert mod.startswith('amico_tpu_torch'), (name, mod)
+    assert set(amico_tpu.__all__) <= set(amico_tpu_torch.__all__)
+    from amico_tpu_torch.io.scheme import Scheme, fsl2scheme, sandi2scheme
+    assert amico_tpu_torch.util.fsl2scheme is fsl2scheme
+    assert amico_tpu_torch.util.sandi2scheme is sandi2scheme
+    assert amico_tpu_torch.scheme.Scheme is Scheme
+    assert amico_tpu_torch.get_verbose() == amico_tpu_torch.util.get_verbose()
+    assert sorted(amico_tpu_torch.util.__all__) == \
+        sorted(amico_tpu.util.__all__)
+    assert sorted(amico_tpu_torch.scheme.__all__) == \
+        sorted(amico_tpu.scheme.__all__)
+    with pytest.raises(NotImplementedError, match='queue 1, entry 7'):
+        amico_tpu_torch.preproc
 
 
 @pytest.mark.parametrize('key,value', [('distributed', True),

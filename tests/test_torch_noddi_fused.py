@@ -112,10 +112,10 @@ def twin(args, **kw):
 
 
 def pallas(args, exvivo, **kw):
+    kw.setdefault('stage_iters', JAX_STAGE_ITERS)
     out = noddi_fused_tiles_pallas(
         *[jnp.asarray(a) for a in args], lam1=0.5, lam2=1e-3,
-        stage_iters=JAX_STAGE_ITERS, is_exvivo=exvivo, interpret=True,
-        precision='highest', **kw)
+        is_exvivo=exvivo, interpret=True, precision='highest', **kw)
     return tuple(np.asarray(o) for o in out) if isinstance(out, tuple) \
         else np.asarray(out)
 
@@ -207,38 +207,206 @@ def test_wrapper_rejects_malformed_inputs(dictionaries):
 
 
 def test_stage_schedule_matches_the_kernel_builder():
-    s1, s2, s3 = cuda_qp.noddi_schedules(DEFAULT_NODDI_STAGE_ITERS)
+    s1, s2, s3 = cuda_qp.noddi_schedules(DEFAULT_NODDI_STAGE_ITERS, 145, 144)
     assert (s1.cg, s1.inner, s1.add_k, s1.polish) == \
         ((4, 6, 8, 10), (1, 1, 1, 1), 2, 10)
     assert (s2.cg, s2.inner, s2.add_k, s2.polish) == \
         ((3, 5, 8, 10, 12, 14), (1, 1, 2, 2, 2, 2), 2, 14)
     assert (s3.cg, s3.inner, s3.add_k, s3.polish) == \
         ((16, 10, 8, 8, 8, 8), (2,) * 6, 1, 16)
+    assert not any(s.fista or s.cont_cg or s.early_exit for s in (s1, s2, s3))
     # int budgets and short per-round tuples extend as _build_as_solve does
-    s = cuda_qp.stage_schedule((0, 4, (5, 7), (1, 2)), True)
+    s = cuda_qp.stage_schedule((0, 4, (5, 7), (1, 2)), True, 145)
     assert (s.cg, s.inner, s.polish) == ((5, 7, 7, 7), (1, 2, 2, 2), 7)
-    s = cuda_qp.stage_schedule((3, 9, 2), False)
+    s = cuda_qp.stage_schedule((3, 9, 2), False, 145)
     assert (s.cg, s.inner, s.add_k) == ((9, 9, 9), (2, 2, 2), 1)
+    # FISTA, `converge` (True: npad = 152 for 145 atoms; an int budget), a
+    # stage without rounds, and no cap on the round count
+    s = cuda_qp.stage_schedule((40, 2, 12, 2, True), True, 145, True)
+    assert (s.fista, s.cont_cg, s.cont_rounds, s.polish, s.early_exit) == \
+        (40, 152, 456, 152, True)
+    s = cuda_qp.stage_schedule((0, 3, (3, 3, 4), 2, 24), True, 144)
+    assert (s.cont_cg, s.cont_rounds, s.polish) == (24, 432, 24)
+    assert cuda_qp.stage_schedule((0, 0, 8, 1), True, 145).cg == ()
+    assert len(cuda_qp.stage_schedule((0, 40, 8, 1), True, 145).cg) == 40
+
+
+# The fused solve's routes beyond the production schedule, each against
+# the Pallas kernel on the same inputs (CPU, interpret mode, highest
+# precision), at K1's agreement bounds (map median < 1e-5, p95 < 5e-3;
+# PERF.md §2).  Stages 1-2 of the production schedule, and a FISTA-seeded
+# uniform schedule (what set_solver's iteration knobs build).
+PROD1, PROD2, PROD3 = JAX_STAGE_ITERS
+KNOBS = ((40, 8, 12, 2), (40, 8, 12, 2), (8, 12, 2))
+ROUTES = {
+    'knobs': dict(stage_iters=KNOBS),
+    'knobs-early-exit': dict(stage_iters=KNOBS, early_exit=True),
+    'early-exit': dict(early_exit=True),
+    'converge-stage2': dict(stage_iters=(PROD1, (0, 3, (3, 3, 4), 2, True),
+                                         PROD3)),
+    'converge-stage2-int': dict(stage_iters=(PROD1, (0, 3, (3, 3, 4), 2, 24),
+                                             PROD3)),
+    'zero-round-stage3': dict(stage_iters=(PROD1, PROD2, (0, 16, 2))),
+}
+
+
+def assert_k1_agreement(est_t, est_j):
+    err = np.abs(np.asarray(est_t) - np.asarray(est_j))
+    assert np.median(err) < MAP_MEDIAN, np.median(err)
+    assert np.percentile(err, 95) < 5e-3, np.percentile(err, 95)
+
+
+def route_parity(scheme, kernels, seed=0, **kw):
+    """The twin and the Pallas kernel on 2 tiles x 64 voxels of the small
+    grid; both outputs as NumPy (a tuple when there are several)."""
+    args = fused_inputs(scheme, kernels, 2, 64, seed=seed, exvivo=False)
+    jkw = dict(kw)
+    jkw.setdefault('stage_iters', JAX_STAGE_ITERS)
+    out_t = noddi_fused_tiles_torch(*[torch.from_numpy(a) for a in args],
+                                    **kw)
+    out_j = noddi_fused_tiles_pallas(*[jnp.asarray(a) for a in args],
+                                     lam1=0.5, lam2=1e-3, interpret=True,
+                                     precision='highest', **jkw)
+    if isinstance(out_t, tuple):
+        return ([o.numpy() for o in out_t], [np.asarray(o) for o in out_j])
+    return out_t.numpy(), np.asarray(out_j)
+
+
+@pytest.mark.parametrize('route', list(ROUTES))
+def test_twin_matches_pallas_on_solver_routes(dictionaries, route):
+    scheme, kernels = dictionaries
+    est_t, est_j = route_parity(scheme, kernels['small'], **ROUTES[route])
+    assert est_t.shape == est_j.shape == (2, 64, 3)
+    assert_k1_agreement(est_t, est_j)
 
 
 @pytest.mark.parametrize('flag', [dict(tiebreak_cg=8), dict(want_tie=True)])
 def test_tiebreak_and_tie_score_raise(dictionaries, flag):
+    """Once a raise, now the JAX kernel's tie-break (with the grid's kappa
+    neighbours) and tie score: the twin against the Pallas kernel at K1's
+    bounds, the score by a median gap < 1e-4; the wrapper takes the twin
+    on the CPU."""
+    from amico_tpu_torch.models.noddi import _kappa_neighbours
     scheme, kernels = dictionaries
+    k = kernels['small']
+    nbm, nbp = _kappa_neighbours(k['icvf'], k['kappa'])
+    kw = dict(flag, nb_minus=nbm, nb_plus=nbp)
+    out_t, out_j = route_parity(scheme, k, **kw)
+    if 'want_tie' in flag:
+        (est_t, tie_t), (est_j, tie_j) = out_t, out_j
+        assert tie_t.shape == tie_j.shape == (2, 64)
+        assert np.median(np.abs(tie_t - tie_j)) < 1e-4
+    else:
+        est_t, est_j = out_t, out_j
+    assert_k1_agreement(est_t, est_j)
     args = [torch.from_numpy(a) for a in
-            fused_inputs(scheme, kernels['small'], 1, 4, seed=2,
-                         exvivo=False)]
-    for fn in (noddi_fused_tiles, noddi_fused_tiles_torch):
-        with pytest.raises(NotImplementedError, match='K1 follow-ups'):
-            fn(*args, **flag)
+            fused_inputs(scheme, k, 1, 4, seed=2, exvivo=False)]
+    for a, b in zip(noddi_fused_tiles(*args, **kw, want_x=True),
+                    noddi_fused_tiles_torch(*args, **kw, want_x=True)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('stage,has_fista', [((40, 4, 8, 1), True),
                                              ((0, 4, 8, 1, True), True),
                                              ((4, 8, 2, 16), False),
                                              ((0, 0, 8, 1), True)])
-def test_unsupported_schedules_raise(stage, has_fista):
-    with pytest.raises(NotImplementedError):
-        cuda_qp.stage_schedule(stage, has_fista)
+def test_unsupported_schedules_raise(dictionaries, stage, has_fista):
+    """Once a raise, now each of these stage entries (FISTA, `converge`,
+    an int `converge` budget on stage 3, a stage without rounds) runs in
+    its stage of the production schedule: the twin against the Pallas
+    kernel at K1's bounds."""
+    scheme, kernels = dictionaries
+    sched = (stage, PROD2, PROD3) if has_fista else (PROD1, PROD2, stage)
+    est_t, est_j = route_parity(scheme, kernels['small'], stage_iters=sched)
+    assert_k1_agreement(est_t, est_j)
+
+
+def test_knobs_schedule_is_order_sensitive_and_dense(pallas_runs):
+    """The reading behind chip_smoke.py's K1A_KNOBS_BOUNDS and PERF.md's
+    K1a timing: under the iteration knobs' schedule (FISTA 40, then 8 flat
+    rounds) on the full grid, the Pallas kernel departs from itself with
+    its WM atoms reordered by a median of ~1e-3 (the production schedule:
+    < 1e-5), and the twin's solve walks tens of times the production
+    schedule's nonzeros (testing.solve_work)."""
+    from amico_tpu_torch.testing import solve_work
+    args, _ = pallas_runs('full', False, 2)
+    knobs = ((40, 8, 12, 2), (40, 8, 12, 2), (8, 12, 2))
+    est = pallas(args, False, stage_iters=knobs)
+    err = np.abs(pallas(permute_wm(args, 0), False, stage_iters=knobs) - est)
+    assert 5e-4 < np.median(err) < 5e-3, np.median(err)
+    assert np.percentile(err, 95) < 2e-2, np.percentile(err, 95)
+    t = [torch.from_numpy(a) for a in args]
+    work = {name: solve_work(noddi_fused_tiles_torch, *t, **kw)[1]
+            for name, kw in (('default', {}), ('knobs', {
+                'stage_iters': knobs}))}
+    assert work['knobs']['nonzeros'] > 30 * work['default']['nonzeros'], work
+
+
+@pytest.fixture(scope='module')
+def degenerate_inputs():
+    """tests/test_tiebreak.py's fused-kernel inputs: a 3 x 4 (icvf x kappa)
+    grid with two adjacent-kappa atoms made near-duplicates, 2 tiles x 16
+    voxels."""
+    rng = np.random.RandomState(1)
+    n_wm, nS, ndwi, C, M = 12, 20, 16, 2, 16
+    icvf = np.tile(np.array([0.3, 0.6, 0.9]), 4).astype(np.float32)
+    kappa = np.repeat(np.array([0.5, 1.0, 2.0, 4.0]), 3).astype(np.float32)
+    A = rng.rand(C, nS, n_wm + 1).astype(np.float32)
+    A[:, :, 4] = A[:, :, 7] + 1e-3 * rng.randn(C, nS).astype(np.float32)
+    Y = np.abs(rng.rand(C, M, nS)).astype(np.float32)
+    rows = np.arange(nS - ndwi, nS)
+    norms = 1.0 / np.linalg.norm(A[0, rows, :n_wm], axis=0)
+    A2 = A[:, rows, :n_wm] * norms[None, None, :]
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+    return [f32(np.einsum('csi,csj->cij', A, A)),
+            f32(np.einsum('csi,csj->cij', A2, A2)),
+            f32(np.einsum('csi,cms->cmi', A, Y)), f32(Y[:, :, rows]),
+            f32(np.swapaxes(A2, 1, 2)), f32(A[0, rows, -1]), icvf, kappa]
+
+
+@pytest.mark.parametrize('flag', ['tiebreak', 'tie'])
+def test_degenerate_tiebreak_matches_pallas(degenerate_inputs, flag):
+    """tests/test_tiebreak.py:135 and :159 through the twin: on a grid with
+    a near-duplicate kappa pair the tie-broken maps and the tie score
+    against the Pallas kernel's (flat 10-round schedule).  The JAX kernel
+    takes the tie-break's matvecs at bf16x3, the port at float32, so the
+    maps are held by distribution."""
+    from amico_tpu_torch.models.noddi import _kappa_neighbours
+    args = degenerate_inputs
+    nbm, nbp = _kappa_neighbours(args[6], args[7])
+    kw = dict(lam1=0.5, lam2=1e-3, fista_iters=0, refine_rounds=10,
+              cg_iters=12, inner_passes=2)
+    sched = ((0, 10, 12, 2), (0, 10, 12, 2), (10, 12, 2))
+    extra = dict(tiebreak_cg=8, nb_minus=nbm, nb_plus=nbp) \
+        if flag == 'tiebreak' else dict(want_tie=True)
+    out_j = noddi_fused_tiles_pallas(*[jnp.asarray(a) for a in args],
+                                     interpret=True, **kw, **extra)
+    out_t = noddi_fused_tiles_torch(*[torch.from_numpy(a) for a in args],
+                                    lam1=0.5, lam2=1e-3, stage_iters=sched,
+                                    **extra)
+    if flag == 'tie':
+        (est_j, tie_j), (est_t, tie_t) = out_j, out_t
+        assert np.isfinite(tie_t.numpy()).all() and tie_t.max() < 0.3
+        assert np.median(np.abs(tie_t.numpy() - np.asarray(tie_j))) < 1e-4
+    else:
+        est_j, est_t = out_j, out_t
+    assert_k1_agreement(est_t.numpy(), est_j)
+
+
+def test_early_exit_stops_early_and_keeps_the_maps(dictionaries):
+    """`early_exit` skips the scheduled rounds a stable tile has left and
+    ends FISTA once the tile stops moving: fewer matvecs than without it
+    (testing.solve_work on the twin) and the same maps by K1's bounds."""
+    from amico_tpu_torch.testing import solve_work
+    scheme, kernels = dictionaries
+    args = [torch.from_numpy(a) for a in fused_inputs(
+        scheme, kernels['small'], 2, 32, seed=5, exvivo=False)]
+    flat = ((0, 24, 12, 2), (0, 24, 12, 2), (24, 12, 2))
+    out, work = solve_work(noddi_fused_tiles_torch, *args, stage_iters=flat)
+    out_ee, work_ee = solve_work(noddi_fused_tiles_torch, *args,
+                                 stage_iters=flat, early_exit=True)
+    assert work_ee['matvecs'] < 0.8 * work['matvecs'], (work_ee, work)
+    assert_k1_agreement(out_ee.numpy(), out.numpy())
 
 
 @pytest.mark.parametrize('exvivo', [False, True])

@@ -1,6 +1,7 @@
 """The port's NODDI model (amico_tpu_torch.models.NODDI) against the JAX
 package: the frozen solver golden, the JAX NODDI fit on the exvivo +
-RMSE/NRMSE path, the device constants, and the options not yet ported."""
+RMSE/NRMSE path, the device constants, and every set_solver route on the
+fused path against the JAX package's fused fit."""
 import os
 
 import numpy as np
@@ -134,17 +135,53 @@ def test_prepare_builds_the_fit_constants(small_problem, exvivo, merged_b0):
     dict(precision='split3'),
     dict(fista_iters=40)])
 def test_unported_solver_options_raise(small_problem, solver_kw):
-    """What the fused solve does not take yet raises on its route
-    ('auto'): the converge continuation, the tie-break, the precision
-    tiers and FISTA (ROADMAP queue 2, K1 follow-ups)."""
+    """Once a raise on the fused route ('auto'), now a fit: the `converge`
+    continuation, the tie-break, a precision tier (computed in float32:
+    the same maps as at 'highest') and FISTA through the iteration knobs,
+    each held against the JAX package's fused NODDI fit with the same
+    set_solver arguments on the golden's voxels, within
+    tests/test_golden.py's median and p95 bounds."""
     scheme, _, kernels, htable = small_problem
+    y, DIRs, _ = golden_inputs(small_problem)
+    fits = {}
+    # the JAX fit at 'highest', which is what the port computes: its own
+    # default and 'split3' take bf16 passes (at 'split3' it sits a median
+    # 8.7e-5 from the port here, CPU)
+    jax_kw = dict(solver_kw, backend='pallas', precision='highest')
+    runs = (('port', NODDI, solver_kw), ('jax', JaxNODDI, jax_kw))
+    if 'precision' in solver_kw:
+        runs += (('port-highest', NODDI, dict(precision='highest')),)
+    for name, cls, kw in runs:
+        model = cls()
+        model.set(**SMALL)
+        model.set_solver(**kw)
+        model.scheme = scheme
+        dev = {} if name == 'jax' else {'device': 'cpu'}
+        fits[name] = np.asarray(model.fit(Ctx(
+            y, DIRs, htable, kernels, tile_size=32, voxels_per_chunk=8192,
+            **dev))['estimates'])
+    assert fits['port'].shape == fits['jax'].shape == (256, 3)
+    if 'port-highest' in fits:
+        assert np.array_equal(fits['port'], fits['port-highest'])
+    err = np.abs(fits['port'] - fits['jax'])
+    assert np.median(err) < 1e-5, np.median(err)
+    assert np.percentile(err, 95) < 1e-3, np.percentile(err, 95)
+
+
+@pytest.mark.parametrize('precision', [
+    'high', 'default', ('highest', 'split3', 'default'),
+    (('default', 'split3', 1), 'split3', ('split3', 'highest', 2))])
+def test_precision_is_validated_and_stored(precision):
+    """Every precision the JAX package's fused kernel resolves is taken and
+    stored; names it does not know raise."""
     model = NODDI()
-    model.set(**SMALL)
-    model.set_solver(**solver_kw)
-    model.scheme = scheme
-    y = np.ones((4, scheme.nS))
-    with pytest.raises(NotImplementedError):
-        model.fit(Ctx(y, np.eye(4, 3), htable, kernels, device='cpu'))
+    model.set_solver(precision=precision)
+    assert model.solver_params['precision'] == (
+        precision if isinstance(precision, str) else tuple(precision))
+    for bad in ('float32', ('highest', 'bf16', 'default'),
+                (('split3', 'highest', 2.5), 'split3', 'highest')):
+        with pytest.raises(ValueError):
+            NODDI().set_solver(precision=bad)
 
 
 # The stagewise path (backend='xla') against the golden, which was frozen

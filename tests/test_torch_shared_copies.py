@@ -205,6 +205,22 @@ def case_pipeline(pkg, tmp, rng):
             pl.resolve_dti_method('LS'), pl.resolve_dti_method('RT')]
 
 
+def case_alias_modules(pkg, tmp, rng):
+    """util.py and scheme.py, the reference's amico.util / amico.scheme."""
+    util, scheme = mod(pkg, 'util'), mod(pkg, 'scheme')
+    bvals = os.path.join(tmp, 'b.bvals')
+    bvecs = os.path.join(tmp, 'b.bvecs')
+    tab = _bvector_table(rng)
+    np.savetxt(bvals, tab[:, 3][None])
+    np.savetxt(bvecs, tab[:, :3].T)
+    out = os.path.join(tmp, 'out.scheme')
+    util.fsl2scheme(bvals, bvecs, out)
+    with open(out) as f:
+        text = f.read()
+    return [sorted(util.__all__), sorted(scheme.__all__), scheme.GAMMA,
+            text, vars(scheme.Scheme(out))]
+
+
 CASES = {name[5:]: fn for name, fn in list(globals().items())
          if name.startswith('case_')}
 
@@ -238,7 +254,8 @@ def test_copies_name_their_originals_and_drop_jax_pieces():
                 'rotation.py', '../ops/sh.py', '../ops/special.py',
                 '../ops/sphere.py', '../ops/native.py',
                 '../synthesis/compartments.py', '../utils/logging.py',
-                '../utils/progress.py', '../utils/timers.py'):
+                '../utils/progress.py', '../utils/timers.py', '../util.py',
+                '../scheme.py'):
         with open(os.path.join(root, rel)) as f:
             head = f.read(200)
         want = 'amico_tpu/' + os.path.normpath(os.path.join('lut', rel))
