@@ -6,8 +6,9 @@ The port of :mod:`amico_tpu` (JAX) to one NVIDIA Hopper card.  It imports
 its own copies of the JAX package's jax-free modules.  Public API, as the
 JAX package's: ``Evaluation``, ``setup``, ``set_verbose``/``get_verbose``,
 ``AmicoError``, ``Scheme``, ``fsl2scheme``, ``sandi2scheme``, and the
-submodules ``core``, ``models``, ``util``, ``scheme``, ``synthesis`` and
-``lut`` as attributes.
+submodules ``core``, ``models``, ``util``, ``scheme``, ``synthesis``,
+``lut``, ``preproc``, ``sweep`` and ``cli`` as attributes.  The command
+line is ``python -m amico_tpu_torch`` (``cli.py``).
 """
 from .io.scheme import Scheme, fsl2scheme, sandi2scheme
 from .utils.logging import AmicoError, get_verbose, set_verbose
@@ -26,10 +27,6 @@ def __getattr__(name):
         core = importlib.import_module('.core', __name__)
         return core if name == 'core' else getattr(core, name)
     if name in ('models', 'util', 'scheme', 'synthesis', 'lut', 'testing',
-                'pipeline', 'device', 'ops'):
+                'pipeline', 'device', 'ops', 'preproc', 'sweep', 'cli'):
         return importlib.import_module(f'.{name}', __name__)
-    if name == 'preproc':
-        raise NotImplementedError(
-            'amico_tpu_torch.preproc (the Rician debias) is not ported yet '
-            '(ROADMAP queue 1, entry 7)')
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

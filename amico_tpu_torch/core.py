@@ -11,12 +11,17 @@ Host stages (NIfTI I/O, native preprocessing, LUT generation and
 resampling, scatter, map writing) are the port's copies of the JAX
 package's jax-free modules.
 The fit uploads the padded float32 signal once to the ``device`` config's
-device; the OLS DTI direction fit and the model's tile driver share that
-upload.  Single host only: the dist/mesh branches, Rician debias and the
-profiler hook are ROADMAP work and raise when asked for.
+device when it fits in ``max_device_bytes`` (the JAX facade's staging
+rule); the DTI direction fit and the model's tile driver share that upload.
+Beyond the budget the DTI fit takes the host array and the tile driver
+streams host-tiled chunks.  The Rician debias runs on the same device
+inside ``load_data``; ``profile_dir`` records the model fit with
+``torch.profiler``.  Single host only: the dist/mesh branches are ROADMAP
+work and raise when asked for.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import pickle
 import time
@@ -36,11 +41,25 @@ from .utils.timers import StageTimers
 from . import models as _models
 from . import pipeline as _pl
 from .device import DEFAULT_DEVICE, resolve_device
+from .models.base import DEFAULT_MAX_DEVICE_BYTES
 
 try:
     from threadpoolctl import ThreadpoolController
 except ImportError:  # pragma: no cover
     ThreadpoolController = None
+
+
+def _profiler(prof_dir: str, device: torch.device):
+    """A ``torch.profiler`` capture (host ops, and on the card its kernels
+    and copies) written as ``*.pt.trace.json`` under ``prof_dir`` when it
+    ends: the counterpart of the JAX package's ``jax.profiler.trace``."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(prof_dir))
 
 
 def setup(lmax: int = 12) -> None:
@@ -85,14 +104,21 @@ def _default_config(study_path, subject, output_path, device) -> dict:
         # high-res gradient table come from (amico_tpu.ops.sphere)
         direction_source='auto',
         # JAX-package keys kept for the config key set; setting them raises
-        # until their ROADMAP items are ported
+        # until their ROADMAP item (queue 1 entry 10) is ported
         distributed=False,
-        profile_dir=None,
         mesh=None,
+        # directory for a torch.profiler trace of the model fit
+        # (*.pt.trace.json, TensorBoard/Perfetto); None disables
+        profile_dir=None,
+        # mid-fit chunk checkpointing: path of the checkpoint file (None
+        # disables) + flush cadence in dispatched chunks (models/base.py)
         fit_checkpoint=None,
         checkpoint_every=4,
-        # cap on the bytes of the staged signal; None = 4 GiB
+        # cap on the bytes of the signal staged on the device; above it the
+        # tile driver streams host-tiled chunks.  None = 4 GiB
         max_device_bytes=None,
+        # SubjectSweep only: load the next subject on a background thread
+        # while the current one fits (sweep.py)
         prefetch=True,
         # 'cuda' | 'cpu' (| 'cuda:N'): where the fit runs (device.py)
         device=device,
@@ -217,28 +243,27 @@ class Evaluation:
         PRINT('\t\t- ' + ' , '.join(parts))
 
     def _preprocess(self, img, b0_thr, b0_min_signal, replace_bad_voxels):
-        """rescale/finite-guard -> b0-normalize -> merge-b0 -> directional
-        average.  The rescale, finite guard and b0 normalization run as
-        one threaded native pass (``ops.native.preprocess_dwi``)
-        when the native library is available; the staged NumPy path is the
-        same computation."""
+        """rescale/finite-guard -> debias -> b0-normalize -> merge-b0 ->
+        directional average.  Without the debias, the rescale, finite guard
+        and b0 normalization run as one threaded native pass
+        (``ops.native.preprocess_dwi``) when the native library is
+        available; the staged NumPy path is the same computation."""
         LOG('\n-> Preprocessing:')
         tic = time.time()
-        if self.get_config('doDebiasSignal'):
-            raise NotImplementedError(
-                'doDebiasSignal (Rician debias) is not ported yet '
-                '(ROADMAP queue 1: Rician debias)')
         hdr = self.niiDWI.header
+        debias = bool(self.get_config('doDebiasSignal'))
         normalize = bool(self.get_config('doNormalizeSignal'))
         rescale = _pl.rescale_meaningful(hdr.scl_slope, hdr.scl_inter)
         if normalize and self.scheme.b0_count == 0:
             ERROR('No b0 volume to normalize signal with')
 
-        from .ops import native
-        fused = native.preprocess_dwi(
-            np.asarray(img), self.scheme.b0_idx, hdr.scl_slope,
-            hdr.scl_inter, rescale, b0_min_signal, replace_bad_voxels,
-            normalize)
+        fused = None
+        if not debias:
+            from .ops import native
+            fused = native.preprocess_dwi(
+                np.asarray(img), self.scheme.b0_idx, hdr.scl_slope,
+                hdr.scl_inter, rescale, b0_min_signal, replace_bad_voxels,
+                normalize)
         if fused is not None:
             img, mean_b0, info = fused
             _pl.finite_report(info['raw_bad'], replace_bad_voxels, 'raw')
@@ -255,6 +280,21 @@ class Evaluation:
         img = np.array(img, dtype=np.float32)
         img, _ = _pl.intensity_rescale(img, hdr.scl_slope, hdr.scl_inter)
         img = _pl.ensure_finite(img, replace_bad_voxels, 'raw')
+        if debias:
+            PRINT('\t* Debiasing signal... ', end='')
+            if self.get_config('DWI-SNR') is None:
+                ERROR('Rician debias needs the acquisition SNR: '
+                      "set_config('DWI-SNR', value) before load_data()")
+            if self.scheme.b0_count == 0:
+                # sigma is estimated from the b0 volumes; without any the
+                # stage would silently no-op on NaN sigmas
+                ERROR('No b0 volume to estimate the noise level '
+                      'for the Rician debias')
+            from .preproc import debiasRician
+            img = debiasRician(img, self.get_config('DWI-SNR'),
+                               self.niiMASK_img, self.scheme,
+                               device=self.get_config('device'))
+            PRINT(' [OK]')
         if normalize:
             PRINT('\t* Normalizing to b0... ', end='')
             img, self.mean_b0s = _pl.b0_normalize(img, self.scheme.b0_idx,
@@ -428,10 +468,7 @@ class Evaluation:
                   'and "load_kernels()" first')
         if self.KERNELS['model'] != self.model.id:
             ERROR('Response functions were not created with the same model')
-        # the model's tile driver rejects mesh/distributed/fit_checkpoint
-        if self.get_config('profile_dir'):
-            raise NotImplementedError(
-                'config "profile_dir" is not ported yet (ROADMAP queue 1)')
+        # the model's tile driver rejects mesh/distributed
         device = resolve_device(self.get_config('device'))
         method = _pl.resolve_dti_method(self.get_config('DTI_fit_method'))
         self.nthreads = self._resolve_threads('nthreads')
@@ -439,10 +476,19 @@ class Evaluation:
         self.set_config('fit_time', None)
         mask = self.niiMASK_img
         n_vox = int(np.count_nonzero(mask == 1))
+        # the JAX facade's staging rule: the signal is staged on the device
+        # only for a single-host, direction-full fit within the budget
+        budget = int(self.get_config('max_device_bytes')
+                     or DEFAULT_MAX_DEVICE_BYTES)
+        want_stage = (not self.get_config('distributed')
+                      and self.get_config('mesh') is None
+                      and not self.get_config('doDirectionalAverage')
+                      and n_vox * int(self.niiDWI_img.shape[3]) * 4 <= budget)
 
         # facade phase timers: staging / directions / model fit / scatter
         tf = {}
         t_enter = t = time.time()
+        self._staged_y_ext_dev = None
         with self.timers.stage('stage_voxels'):
             # fused native extraction (gather + clip + zero pad row); the
             # padded buffer is the device staging layout
@@ -455,12 +501,14 @@ class Evaluation:
                      np.zeros((1, self.y.shape[1]), np.float32)])
             else:
                 self.y = padded[:-1]
-            # one float32 upload, shared by the DTI fit and the tile driver
-            y_ext_dev = torch.from_numpy(
-                np.ascontiguousarray(padded, np.float32)).to(device)
-            if device.type == 'cuda':
-                torch.cuda.synchronize(device)
-        self._staged_y_ext_dev = (self.y, y_ext_dev)
+            if want_stage:
+                # one float32 upload, shared by the DTI fit and the tile
+                # driver
+                y_ext_dev = torch.from_numpy(
+                    np.ascontiguousarray(padded, np.float32)).to(device)
+                if device.type == 'cuda':
+                    torch.cuda.synchronize(device)
+                self._staged_y_ext_dev = (self.y, y_ext_dev)
         tf['stage_voxels_s'] = time.time() - t_enter
 
         LOG(f"\n-> Estimating principal directions "
@@ -469,10 +517,12 @@ class Evaluation:
         if peaks_filename is not None:
             self.DIRs = self._load_peaks(peaks_filename, mask)
         elif not self.get_config('doDirectionalAverage'):
+            y_dti = (self._staged_y_ext_dev[1][:-1]
+                     if self._staged_y_ext_dev is not None else self.y)
             with self.timers.stage('directions'), torch.no_grad():
                 self.DIRs = _pl.principal_directions(
-                    y_ext_dev[:-1], self.scheme, method,
-                    bool(self.get_config('doMergeB0')))
+                    y_dti, self.scheme, method,
+                    bool(self.get_config('doMergeB0')), device=device)
         self.set_config('dirs_precomputing_time', time.time() - t)
         tf['directions_s'] = time.time() - t_enter - tf['stage_voxels_s']
         LOG('   [ %s ]' % time.strftime(
@@ -481,7 +531,10 @@ class Evaluation:
 
         t = time.time()
         LOG(f"\n-> Fitting '{self.model.name}' model to {n_vox} voxels:")
-        with self.timers.stage('fit'):
+        prof_dir = self.get_config('profile_dir')
+        prof_ctx = _profiler(prof_dir, device) if prof_dir \
+            else contextlib.nullcontext()
+        with prof_ctx, self.timers.stage('fit', profile=True):
             results = self.model.fit(self)
         self.set_config('fit_time', time.time() - t)
         tf['model_fit_s'] = time.time() - t
@@ -493,6 +546,9 @@ class Evaluation:
             self.RESULTS = self._scatter_results(results, mask)
         tf['scatter_s'] = time.time() - t
         tf['total_s'] = time.time() - t_enter
+        tf['unattributed_s'] = tf['total_s'] - sum(
+            v for k, v in tf.items() if k.endswith('_s')
+            and k not in ('total_s', 'unattributed_s'))
         self._last_fit_facade_timers = tf
 
     def _load_peaks(self, peaks_filename, mask):

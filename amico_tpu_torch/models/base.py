@@ -1,14 +1,20 @@
 """Model base class and the torch tile driver (counterpart of
 ``amico_tpu.models.base``).
 
-The host helpers and the NODDI schedule constant are copied from the JAX
-package, whose module imports jax.  ``_run_tiled_fit`` replaces the JAX
-driver: one float32 upload of the padded (N+1, nS) signal, a per-chunk
-``index_select`` gather from the tile plan, every chunk dispatched before
-any result is pulled, and outputs untiled to (N, ...) NumPy arrays.
+The host helpers, the checkpoint fingerprint and the NODDI schedule
+constant are copied from the JAX package, whose module imports jax.
+``_run_tiled_fit`` replaces the JAX driver.  Within ``max_device_bytes`` it
+uploads the padded (N+1, nS) float32 signal once and gathers each chunk on
+the device from the tile plan (``index_select``); beyond it, it streams
+host-tiled chunks from pinned memory with a bounded number in flight.  The
+chunking is the same in both modes, so are the maps.  Chunks are pulled as
+late as the in-flight window and the ``fit_checkpoint`` cadence allow, and
+the outputs are untiled to (N, ...) NumPy arrays.
 """
 from __future__ import annotations
 
+import hashlib
+import os
 import time
 from abc import ABC, abstractmethod
 from os.path import join as pjoin
@@ -18,7 +24,8 @@ import torch
 
 from .. import lut as _lut
 from ..utils.logging import ERROR
-from .engine import build_tile_plan, iter_tile_chunks, untile_voxels
+from .engine import (build_tile_plan, iter_tile_chunks, tile_voxels,
+                     untile_voxels)
 
 DEFAULT_BACKEND = 'auto'
 DEFAULT_FISTA_ITERS = 40
@@ -57,9 +64,12 @@ DENSE_AS_SOLVER_KW = {
 # tile width: the width the JAX package uses off the TPU.  Its TPU
 # lane-width cost model is not carried over (ROADMAP: tile width on the H100)
 DEFAULT_TILE_SIZE = 128
-# voxels per dispatched chunk: bounds the per-chunk gathered dictionaries
-# and Grams (about 230 KB per 128-voxel tile of the full NODDI grid)
+# voxels per dispatched chunk, in both staging modes: bounds the per-chunk
+# gathered dictionaries and Grams (about 230 KB per 128-voxel tile of the
+# full NODDI grid)
 DEFAULT_VOXELS_PER_CHUNK = 65536
+# the signal is staged on the device whole up to this many float32 bytes,
+# and streamed in chunks beyond it (the JAX package's default)
 DEFAULT_MAX_DEVICE_BYTES = 4 << 30
 
 
@@ -72,10 +82,12 @@ def _chunk_streams(device) -> list:
     `converge` tail of a tile solve) overlap the next chunk's; else None,
     for which ``torch.cuda.stream`` changes nothing.  The second waits for
     what the current one has queued (the uploads and the model's
-    constants); every tensor it reads lives until the fit's synchronize.
-    It is made once a card: the caching allocator keeps a stream's freed
-    blocks for that stream, so a new one each fit would allocate its
-    chunks' memory anew."""
+    constants).  A chunk's streamed input is uploaded on the chunk's own
+    stream, so the allocator reuses its block only after that chunk's
+    work, and a chunk's outputs are pulled only after the event recorded
+    on its stream.  The second stream is made once a card: the caching
+    allocator keeps a stream's freed blocks for that stream, so a new one
+    each fit would allocate its chunks' memory anew."""
     if device.type != 'cuda':
         return [None]
     index = torch.cuda.current_device() if device.index is None \
@@ -211,6 +223,28 @@ class BaseModel(ABC):
                              f'got {backend!r}')
         return backend
 
+    def _ckpt_fingerprint(self, plan, tile_size: int,
+                          y: np.ndarray) -> np.ndarray:
+        """Mid-fit checkpoint fingerprint, the JAX package's recipe: pins
+        everything a resumed chunk's values depend on -- the tile plan
+        (voxel bucketing), the signal content, and the model/solver
+        parameters.  A crash-rerun with a changed lambda or an edited
+        volume must recompute, not merge stale chunks."""
+        pstride = max(1, plan.perm.size // 65536)
+        perm_sum = int(np.sum(plan.perm[::pstride], dtype=np.int64))
+        ystride = max(1, y.size // 65536)
+        y_sum = float(np.sum(y.ravel()[::ystride], dtype=np.float64))
+        params_repr = repr((sorted(getattr(self, 'solver_params',
+                                           {}).items()),
+                            sorted(self.get_params().items(),
+                                   key=lambda kv: kv[0])))
+        params_h = int.from_bytes(
+            hashlib.blake2b(params_repr.encode(), digest_size=8).digest(),
+            'little', signed=True)
+        return np.array([plan.n_tiles, tile_size, perm_sum,
+                         params_h, np.float64(y_sum).view(np.int64)],
+                        np.int64)
+
     # ------------------------------------------------- tiled fit driver
     def _run_tiled_fit(self, evaluation, fit_chunk_fn, n_outputs_like: dict,
                        device: torch.device):
@@ -220,13 +254,19 @@ class BaseModel(ABC):
         bool)`` gets device tensors and returns a dict of device tensors
         with leading dims (C, M).  ``n_outputs_like``: {name: trailing
         shape} of the outputs.  Returns a dict of (N, ...) float32 NumPy
-        arrays in the original voxel order."""
+        arrays in the original voxel order.
+
+        With the ``fit_checkpoint`` config, every ``checkpoint_every``
+        dispatched chunks the chunks done so far are written to that file
+        (``plan_fp``, ``done_until`` and one array per output, replaced
+        atomically); a rerun of the same fit skips the chunks below
+        ``done_until``, and the file is deleted when the fit completes."""
         t_enter = time.time()
-        for key in ('mesh', 'distributed', 'fit_checkpoint'):
+        for key in ('mesh', 'distributed'):
             if evaluation.get_config(key):
                 raise NotImplementedError(
-                    f'config "{key}" is not ported yet (ROADMAP queue 1: '
-                    'mesh/dist and fit_checkpoint)')
+                    f'config "{key}" is not ported yet (ROADMAP queue 1, '
+                    'entry 10: mesh and dist)')
         y = np.asarray(evaluation.y)
         lut_idx = _lut.dir_to_lut_idx(np.asarray(evaluation.DIRs, np.float64),
                                       evaluation.htable)
@@ -238,52 +278,109 @@ class BaseModel(ABC):
         chunk_tiles = max(1, vpc // tile_size)
         plan = build_tile_plan(lut_idx, tile_size)
 
+        # the JAX driver's rule on the float32 bytes that would be staged:
+        # within the budget the flat signal is staged once and each chunk
+        # gathered on the device; beyond it host-tiled chunks stream, at
+        # most max_inflight of them on the device at once, none cached
         budget = int(evaluation.get_config('max_device_bytes')
                      or DEFAULT_MAX_DEVICE_BYTES)
-        if (y.shape[0] + 1) * y.shape[1] * 4 > budget:
-            raise NotImplementedError(
-                f'the signal ({y.shape}) exceeds max_device_bytes={budget}; '
-                'streaming host-tiled chunks is not ported yet')
-        staged = getattr(evaluation, '_staged_y_ext_dev', None)
-        if staged is not None and staged[0] is y \
-                and staged[1].device == device \
-                and tuple(staged[1].shape) == (y.shape[0] + 1, y.shape[1]):
-            y_ext = staged[1]           # the facade's upload, shared with DTI
-        else:
-            y_ext = torch.from_numpy(np.concatenate(
-                [y.astype(np.float32, copy=False),
-                 np.zeros((1, y.shape[1]), np.float32)])).to(device)
+        M, nS = tile_size, y.shape[1]
+        device_gather = y.size * 4 <= budget
+        max_inflight = max(2, budget // max(chunk_tiles * M * nS * 4, 1))
 
-        perm = torch.from_numpy(plan.perm.astype(np.int64)).to(device)
+        out_tiles = {k: np.zeros((plan.n_tiles, tile_size) + shape, np.float32)
+                     for k, shape in n_outputs_like.items()}
+        # a checkpoint is merged only when it matches this exact fit (the
+        # fingerprint) and holds every requested output
+        ckpt_path = evaluation.get_config('fit_checkpoint')
+        ckpt_every = int(evaluation.get_config('checkpoint_every') or 4)
+        done_until = 0
+        if ckpt_path:
+            ck_fp = self._ckpt_fingerprint(plan, tile_size, y)
+            if os.path.isfile(ckpt_path):
+                with np.load(ckpt_path) as ck:
+                    if 'plan_fp' in ck \
+                            and np.array_equal(ck['plan_fp'], ck_fp) \
+                            and all(k in ck for k in out_tiles):
+                        done_until = int(ck['done_until'])
+                        for k in out_tiles:
+                            out_tiles[k][:done_until] = ck[k][:done_until]
+
+        if device_gather:
+            staged = getattr(evaluation, '_staged_y_ext_dev', None)
+            if staged is not None and staged[0] is y \
+                    and staged[1].device == device \
+                    and tuple(staged[1].shape) == (y.shape[0] + 1, nS):
+                y_ext = staged[1]       # the facade's upload, shared with DTI
+            else:
+                y_ext = torch.from_numpy(np.concatenate(
+                    [y.astype(np.float32, copy=False),
+                     np.zeros((1, nS), np.float32)])).to(device)
+            perm = torch.from_numpy(plan.perm.astype(np.int64)).to(device)
+        else:
+            Y_host = tile_voxels(plan, y.astype(np.float32, copy=False))
         dirs_t = torch.from_numpy(plan.tile_dirs.astype(np.int64)).to(device)
         valid_t = torch.from_numpy(plan.valid).to(device)
-        timers = {'setup_s': time.time() - t_enter}
+        timers = {'setup_s': time.time() - t_enter,
+                  'streamed': int(not device_gather)}
+
+        def pull(item):
+            """Copy one chunk's outputs to the host, once the stream that
+            made them has finished the chunk."""
+            start, stop, res, done = item
+            if done is not None:
+                done.synchronize()
+            for k, arr in res.items():
+                out_tiles[k][start:stop] = arr.float().cpu().numpy()
+
         t_loop = time.time()
         pending = []
-        M, nS = tile_size, y.shape[1]
+        n_dispatched = 0
         streams = _chunk_streams(device)
         chunks = iter_tile_chunks(plan.n_tiles, chunk_tiles)
         for i, (start, stop, _pad) in enumerate(chunks):
+            if stop <= done_until:
+                continue
             # the last chunk runs short instead of padded: eager dispatch
             # has no compiled shape to keep
-            with torch.cuda.stream(streams[i % len(streams)]):
-                idx = perm[start * M:stop * M]
-                Yc = y_ext.index_select(0, idx).view(stop - start, M, nS)
-                pending.append((start, stop, fit_chunk_fn(
-                    Yc, dirs_t[start:stop], valid_t[start:stop])))
+            stream = streams[i % len(streams)]
+            with torch.cuda.stream(stream):
+                if device_gather:
+                    idx = perm[start * M:stop * M]
+                    Yc = y_ext.index_select(0, idx).view(stop - start, M, nS)
+                else:
+                    Yc = torch.from_numpy(Y_host[start:stop])
+                    if device.type == 'cuda':
+                        Yc = Yc.pin_memory().to(device, non_blocking=True)
+                res = fit_chunk_fn(Yc, dirs_t[start:stop], valid_t[start:stop])
+                done = None
+                if stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(stream)
+            del Yc
+            pending.append((start, stop, res, done))
+            n_dispatched += 1
+            if len(pending) >= max_inflight:
+                pull(pending.pop(0))
+            if ckpt_path and n_dispatched % ckpt_every == 0:
+                for item in pending:
+                    pull(item)
+                pending = []
+                np.savez(ckpt_path + '.tmp', plan_fp=ck_fp, done_until=stop,
+                         **out_tiles)
+                os.replace(ckpt_path + '.tmp.npz', ckpt_path)
         timers['dispatch_s'] = time.time() - t_loop
-        timers['n_chunks'] = len(pending)
+        timers['n_chunks'] = n_dispatched
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         timers['device_s'] = time.time() - t_loop - timers['dispatch_s']
 
         t_pull = time.time()
-        out_tiles = {k: np.zeros((plan.n_tiles, tile_size) + shape, np.float32)
-                     for k, shape in n_outputs_like.items()}
-        for start, stop, res in pending:
-            for k, arr in res.items():
-                out_tiles[k][start:stop] = arr.float().cpu().numpy()
+        for item in pending:
+            pull(item)
         timers['pull_s'] = time.time() - t_pull
+        if ckpt_path and os.path.isfile(ckpt_path):
+            os.remove(ckpt_path)
         t_unt = time.time()
         out = {k: untile_voxels(plan, v) for k, v in out_tiles.items()}
         timers['untile_s'] = time.time() - t_unt

@@ -149,7 +149,8 @@ def principal_directions(y, scheme, method: str, merged_b0: bool,
                          device=None) -> np.ndarray:
     """Per-voxel principal fiber direction, (N, 3) float32 on the host.
 
-    The port's own stage: the OLS DTI fit of :mod:`amico_tpu_torch.ops.dti`.
+    The port's own stage: the DTI fit of :mod:`amico_tpu_torch.ops.dti` by
+    ``method`` (OLS, WLS, NLLS or RESTORE).
     ``y`` is an (N, nS) NumPy array (uploaded once, in float32, to
     ``device``, resolved as the ``device`` config key is: None means the
     card, and no card raises) or a tensor already on the device (the

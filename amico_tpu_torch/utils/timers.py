@@ -1,13 +1,15 @@
 """Copy of ``amico_tpu/utils/timers.py`` for the port, which imports nothing of
-``amico_tpu``, without its ``jax.profiler`` branch.
+``amico_tpu``; its one difference is the profiler: ``profile=True`` wraps
+the stage in ``torch.profiler.record_function`` where the original uses
+``jax.profiler.TraceAnnotation``.
 
 Stage timing.
 
 The reference records coarse wall-clock stage timings into its CONFIG dict
 (reference amico/core.py:127,195,374-377,449-468).  We keep the same
-stage-timing dict.  The original's ``jax.profiler`` trace annotation
-(``profile=True``) is not ported: it raises until the port's profiler hook
-lands (ROADMAP queue 1 item 15).
+stage-timing dict and add a ``torch.profiler`` range when enabled, which a
+running profiler (the facade's ``profile_dir``) records under the stage's
+name.
 """
 from __future__ import annotations
 
@@ -23,12 +25,13 @@ class StageTimers:
 
     @contextlib.contextmanager
     def stage(self, name: str, profile: bool = False):
+        ctx = contextlib.nullcontext()
         if profile:
-            raise NotImplementedError(
-                'profiled stages are not ported to amico_tpu_torch (ROADMAP '
-                'queue 1 item 15: a torch.profiler hook)')
+            import torch.profiler
+            ctx = torch.profiler.record_function(name)
         t0 = time.time()
-        yield
+        with ctx:
+            yield
         self.times[name] = self.times.get(name, 0.0) + (time.time() - t0)
 
     def get(self, name: str) -> float | None:

@@ -65,7 +65,30 @@ Phases; any failure exits non-zero and prints no result line:
    with doDirectionalAverage) through Evaluation(device='cuda'),
    load_data -> save_results(save_dir_avg=True) on the stagewise solver:
    first and second fit, CUDA kernels a chunk (torch.profiler), the
-   written files, an exact-oracle audit of 1,000 voxels.
+   written files, an exact-oracle audit of 1,000 voxels;
+13. the study path, on phase 4's subject (NODDI on K1) unless said:
+   a. ``python -m amico_tpu_torch fit`` in a subprocess into another
+      output path: its maps against phase 4's, bit for bit (else within
+      K1's agreement bounds, with the reason logged);
+   b. ``cli.main(['sweep', ...])`` in this process over phase 4's subject
+      and one of seed 8: K1's launches, the per-subject times, the warm
+      state reused for the second subject; a rerun skips both
+      (``config.pickle`` untouched);
+   c. the seed-8 subject with checkpoint_every=1, raised after its second
+      chunk by a wrapper of the chunk function; the rerun resumes from
+      ``done_until``, equals the uninterrupted fit bit for bit and deletes
+      the checkpoint;
+   d. NODDI, and FreeWater on phase 6's subject, staged and streamed beyond
+      a 64 MiB ``max_device_bytes``: equal maps, times and peak device
+      memory;
+   e. the DTI methods (OLS, WLS, NLLS, RESTORE) on the staged signal: the
+      LUT direction of the true one, their times, and the card against the
+      port's CPU run on 4,096 voxels;
+   f. phase 4's volume with Rician noise at SNR 20: the debias on the card
+      against the CPU on 4,096 voxels, its time, then load_data with
+      doDebiasSignal and a fit;
+   g. a fit with ``profile_dir``: the trace names K1's kernel and ``fit``;
+   h. ``python -m amico_tpu_torch warmup --study`` (beside a) exits 0.
 
 The kernels are built in phase 2; every launch count is read from the main
 path's run alone (counts set to 0 just before it).  Each kernel's bound is
@@ -198,6 +221,20 @@ K1A_KNOBS_BOUNDS = (5e-3, 2e-2, 1e-2, 5e-2)
 # tests/test_torch_sandi.py); bounds about ten times those.  (median, p95,
 # max)
 SANDI_AUDIT = {'fractions': (1e-4, 5e-4, 5e-3), 'Rsoma': (1e-3, 5e-3, 5e-2)}
+# phase 13, the study path.  The streamed fits' device budget: the 409,600-
+# voxel signal is 162 MB, so this streams 65,536-voxel chunks (26 MB), two
+# in flight
+STREAM_BUDGET = 64 << 20
+# the DTI methods on the card against the port's CPU run on 4,096 voxels:
+# the angle bounds (degrees, median and p99) that tests/test_torch_dti.py
+# holds the port to against the JAX package on the CPU
+DTI_CPU_MEDIAN, DTI_CPU_P99 = 0.05, 0.5
+# the Rician debias: SNR of the noisy copy of phase 4's volume, and the card
+# against the CPU as tests/test_torch_preproc.py holds the port to the JAX
+# package (just above the noise floor the float32 rounding of S - floor
+# sets the spread): |card - cpu| <= rtol |cpu| + atol sigma
+SNR = 20.0
+DEBIAS_RTOL, DEBIAS_ATOL = 1e-4, 2e-3
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores (the kernels compute
 # in float32 on the CUDA cores)
@@ -1033,6 +1070,420 @@ def phase_noddi_xla(study, maps_fused):
           'NODDI xla oracle audit outside its bounds')
 
 
+NODDI_MAPS = ('fit_NDI', 'fit_ODI', 'fit_FWF', 'fit_dir')
+
+
+def load_maps(out_dir, names=NODDI_MAPS):
+    from amico_tpu_torch.io import nifti
+    return {n: nifti.load(os.path.join(out_dir, n + '.nii.gz'))
+            .get_fdata(np.float32) for n in names}
+
+
+def maps_equal_or_within_k1(got, ref, what):
+    """Bit for bit, or else (logged with the reason) within K1's agreement
+    bounds on every map."""
+    if all(np.array_equal(got[k], ref[k]) for k in ref):
+        log(f'{what}: maps equal bit for bit')
+        return
+    for k in ref:
+        e = np.abs(got[k].astype(np.float64) - ref[k])
+        log(f'{what}: {k} differs, median {np.median(e):.3g} p95 '
+            f'{np.percentile(e, 95):.3g} max {e.max():.3g}')
+        check(np.median(e) < KERNEL_MAP_MEDIAN
+              and np.percentile(e, 95) < KERNEL_MAP_P95,
+              f'{what}: {k} outside K1\'s agreement bounds')
+    log(f'{what}: maps not bit-equal (the same inputs through another '
+        'process); within K1\'s agreement bounds')
+
+
+def run_processes(cmds, logs, timeout):
+    """Run ``cmds`` side by side, each writing to its log file; fail with
+    the log's tail if one exits non-zero or outlasts ``timeout`` seconds.
+    Every process is ended before this returns."""
+    procs = []
+    try:
+        for cmd, path in zip(cmds, logs):
+            with open(path, 'w') as f:
+                procs.append(subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT,
+                    cwd=os.path.dirname(os.path.abspath(__file__))))
+        deadline = time.time() + timeout
+        rcs = [p.wait(timeout=max(1.0, deadline - time.time()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = []
+    for rc, path, cmd in zip(rcs, logs, cmds):
+        with open(path) as f:
+            tail = f.read().strip().splitlines()[-12:]
+        check(rc == 0, f'{" ".join(cmd[1:4])} exited {rc}: '
+              + '\n'.join(tail))
+        tails.append(tail)
+    return tails
+
+
+def phase_study_cli(study, tmp):
+    """13a/13h: ``python -m amico_tpu_torch fit`` on phase 4's subject into
+    another output path (its maps against phase 4's) and ``warmup
+    --study`` on the same subject, two processes side by side."""
+    base = [sys.executable, '-m', 'amico_tpu_torch']
+    out = os.path.join(tmp, 'cli_out')
+    t0 = time.time()
+    fit_tail, wu_tail = run_processes(
+        [base + ['fit', study, 'subj', '--model', 'NODDI', '--verbose', '1',
+                 '--output-path', out],
+         base + ['warmup', '--study', study, '--subject', 'subj',
+                 '--model', 'NODDI', '-v', '1']],
+        [os.path.join(tmp, 'cli_fit.log'), os.path.join(tmp, 'warmup.log')],
+        timeout=300)
+    log(f'13a/h: CLI fit and warmup --study, two processes: '
+        f'{time.time() - t0:.2f} s; warmup said: {wu_tail[-1]}')
+    check(wu_tail[-1].startswith('warmup: ran the NODDI fit'),
+          'warmup printed no result line')
+    maps_equal_or_within_k1(
+        load_maps(out),
+        load_maps(os.path.join(study, 'subj', 'AMICO', 'NODDI')),
+        '13a: CLI fit against phase 4')
+
+
+def phase_sweep(study, tmp):
+    """13b: ``cli.main(['sweep', ...])`` in this process over phase 4's
+    subject and the seed-8 one; then again, which must skip both."""
+    from amico_tpu_torch import cli
+    from amico_tpu_torch import sweep as sweep_mod
+    from amico_tpu_torch.ops.cuda_qp import noddi_fused_tiles
+    out = os.path.join(tmp, 'sweep_out')
+    argv = ['sweep', study, '--subjects', 'subj', 'subj8', '--model',
+            'NODDI', '--verbose', '1', '--config', f'OUTPUT_path={out}']
+    made = []
+    run = sweep_mod.SubjectSweep.run
+
+    def recording(self, *a, **kw):
+        made.append(self)
+        return run(self, *a, **kw)
+    sweep_mod.SubjectSweep.run = recording
+    try:
+        noddi_fused_tiles.launches = 0
+        t0 = time.time()
+        rc = cli.main(argv)
+        sweep_s = time.time() - t0
+        launches = noddi_fused_tiles.launches
+        cfgs = [os.path.join(out, s, 'config.pickle') for s in ('subj',
+                                                                 'subj8')]
+        check(rc == 0 and all(map(os.path.isfile, cfgs)),
+              f'the sweep failed (rc {rc}): {made[0].results}')
+        mtimes = [os.path.getmtime(c) for c in cfgs]
+        noddi_fused_tiles.launches = 0
+        t0 = time.time()
+        rc2 = cli.main(argv)
+        again_s = time.time() - t0
+    finally:
+        sweep_mod.SubjectSweep.run = run
+    first = made[0]
+    log(f'13b: sweep of 2 subjects {sweep_s:.2f} s; per subject (s) '
+        + json.dumps({k: round(v, 3) for k, v in first.seconds.items()})
+        + f'; K1 launches {launches}; warm state reused for '
+        f'{first.warm_reused}; rerun {again_s:.2f} s, K1 launches '
+        f'{noddi_fused_tiles.launches}, fitted {list(made[1].seconds)}')
+    check(launches > 0, 'the sweep never launched K1')
+    check(first.warm_reused == ['subj8'],
+          'the second subject did not reuse the warm state')
+    check(rc2 == 0 and not made[1].seconds
+          and noddi_fused_tiles.launches == 0
+          and [os.path.getmtime(c) for c in cfgs] == mtimes,
+          'the rerun did not skip both subjects')
+    check(not any(os.path.exists(os.path.join(
+        study, s, '.amico_tpu_ckpt_NODDI.npz')) for s in ('subj', 'subj8')),
+        'a sweep checkpoint was left behind')
+    maps_equal_or_within_k1(
+        load_maps(os.path.join(out, 'subj')),
+        load_maps(os.path.join(study, 'subj', 'AMICO', 'NODDI')),
+        '13b: sweep against phase 4')
+    return load_maps(os.path.join(out, 'subj8'))
+
+
+def phase_crash_resume(study, tmp, sweep_maps):
+    """13c: the seed-8 subject's fit with checkpoint_every=1, raised from
+    its third chunk by a wrapper of the chunk function; the rerun resumes
+    from done_until."""
+    import amico_tpu_torch
+    ck = os.path.join(tmp, 'subj8_ckpt.npz')
+    ev = amico_tpu_torch.Evaluation(study, 'subj8', device='cuda')
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    ev.set_model('NODDI')
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    ev.fit()
+    full = ev.RESULTS['MAPs'].copy()
+    n_chunks = ev.model._last_fit_timers['n_chunks']
+    ev.set_config('fit_checkpoint', ck)
+    ev.set_config('checkpoint_every', 1)
+    run = ev.model._run_tiled_fit
+
+    def crashing(evaluation, fit_chunk_fn, *args):
+        calls = []
+
+        def chunk(*a):
+            calls.append(1)
+            if len(calls) > 2:
+                raise RuntimeError('13c: injected crash')
+            return fit_chunk_fn(*a)
+        return run(evaluation, chunk, *args)
+    ev.model._run_tiled_fit = crashing
+    crashed = None
+    try:
+        ev.fit()
+    except RuntimeError as e:
+        crashed = str(e)
+    finally:
+        del ev.model._run_tiled_fit
+    check(crashed == '13c: injected crash', f'the fit did not crash: {crashed}')
+    with np.load(ck) as f:
+        done_until = int(f['done_until'])
+    t0 = time.time()
+    ev.fit()
+    resume_s = time.time() - t0
+    resumed = ev.model._last_fit_timers['n_chunks']
+    log(f'13c: crashed after 2 of {n_chunks} chunks, checkpoint at '
+        f'done_until {done_until} tiles; the rerun ran {resumed} chunks in '
+        f'{resume_s:.3f} s')
+    from amico_tpu_torch.models.base import DEFAULT_VOXELS_PER_CHUNK
+    check(done_until == 2 * (DEFAULT_VOXELS_PER_CHUNK // 128)
+          and resumed == n_chunks - 2,
+          'the rerun did not resume from done_until')
+    check(not os.path.exists(ck), 'the checkpoint was not deleted')
+    check(np.array_equal(ev.RESULTS['MAPs'], full),
+          'the resumed maps differ from the uninterrupted fit')
+    log('13c: resumed maps equal the uninterrupted fit bit for bit')
+    maps_equal_or_within_k1(
+        {'fit_NDI': full[..., 0].astype(np.float32)},
+        {'fit_NDI': sweep_maps['fit_NDI']}, '13c: seed-8 fit against the sweep')
+
+
+def fit_pair(ev, budget, what):
+    """A staged fit and one streamed under ``budget`` bytes: (maps of
+    each); prints both fits' times and peak device memory (whole fit, and
+    the tile driver alone)."""
+    import torch
+    out = []
+    for b in (None, budget):
+        ev.set_config('max_device_bytes', b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        ev.fit()
+        fit_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev.model.fit(ev)
+        torch.cuda.synchronize()
+        driver_peak = torch.cuda.max_memory_allocated()
+        t = ev.model._last_fit_timers
+        log(f'13d: {what} {"streamed" if b else "staged"} fit {fit_s:.3f} s '
+            f'(engine ' + json.dumps({k: round(v, 4) for k, v in t.items()})
+            + f'); max_memory_allocated {peak / 2**20:.1f} MiB, tile driver '
+            f'alone {driver_peak / 2**20:.1f} MiB')
+        check(t['streamed'] == int(b is not None),
+              f'{what}: the staging mode did not follow the budget')
+        out.append(ev.RESULTS['MAPs'].copy())
+    ev.set_config('max_device_bytes', None)
+    return out
+
+
+def phase_streaming(study, fw_study, noddi_maps):
+    """13d: NODDI on phase 4's subject and FreeWater on phase 6's, each
+    staged and streamed beyond a 64 MiB budget: equal maps."""
+    import amico_tpu_torch
+    from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
+    ev = amico_tpu_torch.Evaluation(study, 'subj', device='cuda')
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    ev.set_model('NODDI')
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    noddi_fused_tiles.launches = 0
+    staged, streamed = fit_pair(ev, STREAM_BUDGET, 'NODDI')
+    mask = ev.niiMASK_img == 1
+    check(noddi_fused_tiles.launches > 0, 'the streamed NODDI fit ran no K1')
+    check(np.array_equal(staged, streamed)
+          and np.array_equal(streamed[mask], noddi_maps.astype(np.float32)),
+          'the streamed NODDI maps differ from the staged ones')
+    fw = amico_tpu_torch.Evaluation(fw_study, 'subj', device='cuda')
+    fw.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    fw.set_model('FreeWater')
+    fw.generate_kernels(ndirs=500)
+    fw.load_kernels()
+    nneg_qp_tiles.launches = 0
+    staged, streamed = fit_pair(fw, STREAM_BUDGET, 'FreeWater')
+    check(nneg_qp_tiles.launches > 0, 'the streamed FreeWater fit ran no K2')
+    check(np.array_equal(staged, streamed),
+          'the streamed FreeWater maps differ from the staged ones')
+    log(f'13d: streamed maps equal the staged ones bit for bit (NODDI, '
+        f'FreeWater; budget {STREAM_BUDGET} bytes, signal '
+        f'{ev.y.size * 4} bytes)')
+    ev.fit()            # staged again, for 13e and 13g
+    return ev
+
+
+def angles(d, ref):
+    dots = np.abs(np.sum(np.asarray(d, np.float64)
+                         * np.asarray(ref, np.float64), axis=1))
+    return np.degrees(np.arccos(np.clip(dots, 0.0, 1.0)))
+
+
+def phase_dti_methods(ev, lut_true):
+    """13e: WLS, NLLS and RESTORE on phase 4's staged signal against the
+    true directions, and the card against the port's CPU run on 4,096
+    sampled voxels."""
+    import torch
+    from amico_tpu_torch import lut as _lut
+    from amico_tpu_torch.pipeline import principal_directions
+    y_dev = ev._staged_y_ext_dev[1][:-1]
+    sel = np.random.RandomState(0).choice(y_dev.shape[0],
+                                          min(4096, y_dev.shape[0]),
+                                          replace=False)
+    times = {}
+    for method in ('OLS', 'WLS', 'NLLS', 'RESTORE'):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dirs = principal_directions(y_dev, ev.scheme, method, False)
+        times[method] = time.time() - t0
+        agree = float(np.mean(_lut.dir_to_lut_idx(
+            dirs.astype(np.float64), ev.htable) == lut_true))
+        cpu = principal_directions(ev.y[sel], ev.scheme, method, False,
+                                   device='cpu')
+        ang = angles(dirs[sel], cpu)
+        log(f'13e: DTI {method}: {times[method]:.3f} s on '
+            f'{y_dev.shape[0]} voxels; LUT direction of the true one on '
+            f'{agree:.6f}; card against CPU on 4096 voxels: angle median '
+            f'{np.median(ang):.3g} p99 {np.percentile(ang, 99):.3g} max '
+            f'{ang.max():.3g} deg')
+        check(agree >= DIRS_AGREE, f'DTI {method} disagrees with the truth')
+        check(np.median(ang) < DTI_CPU_MEDIAN
+              and np.percentile(ang, 99) < DTI_CPU_P99,
+              f'DTI {method}: the card disagrees with the CPU')
+    return times
+
+
+def phase_profiler(ev, tmp):
+    """13g: one NODDI fit with profile_dir: the trace holds K1's kernel
+    and the 'fit' range."""
+    import glob
+    prof = os.path.join(tmp, 'prof')
+    ev.set_config('profile_dir', prof)
+    t0 = time.time()
+    ev.fit()
+    ev.set_config('profile_dir', None)
+    traces = glob.glob(os.path.join(prof, '*.pt.trace.json'))
+    check(len(traces) == 1, f'profile_dir holds {traces}')
+    with open(traces[0]) as f:
+        text = f.read()
+    log(f'13g: profiled fit {time.time() - t0:.3f} s; trace '
+        f'{os.path.basename(traces[0])}, {len(text)} bytes')
+    check('noddi_fused_kernel' in text and '"name": "fit"' in text,
+          'the trace lacks K1 or the fit range')
+
+
+def phase_debias(study, lut_true):
+    """13f: phase 4's volume with Rician noise at SNR 20, debiased on the
+    card (against the CPU on 4,096 voxels), then load_data with
+    doDebiasSignal and a NODDI fit."""
+    import torch
+    import amico_tpu_torch
+    from amico_tpu_torch.io import nifti
+    from amico_tpu_torch.preproc import debias_rician_batch, debiasRician
+    from amico_tpu_torch.testing import direction_agreement
+    t0 = time.time()
+    src = os.path.join(study, 'subj')
+    img = nifti.load(os.path.join(src, 'DWI.nii'))
+    vol = img.get_fdata(np.float32)
+    scheme = amico_tpu_torch.Scheme(os.path.join(src, 'DWI.scheme'))
+    b0 = vol[..., scheme.b0_idx].mean(-1, keepdims=True)
+    rng = np.random.default_rng(20)
+    sigma = b0 / SNR
+    noisy = np.hypot(vol + sigma * rng.standard_normal(vol.shape, np.float32),
+                     sigma * rng.standard_normal(vol.shape, np.float32))
+    dst = os.path.join(study, 'subj_rician')
+    os.makedirs(dst, exist_ok=True)
+    nifti.save(nifti.Nifti1Image(noisy.astype(np.float32), img.affine),
+               os.path.join(dst, 'DWI.nii'))
+    with open(os.path.join(src, 'DWI.scheme')) as f, \
+            open(os.path.join(dst, 'DWI.scheme'), 'w') as g:
+        g.write(f.read())
+    log(f'13f: Rician subject (SNR {SNR}) written: {time.time() - t0:.1f} s')
+    mask = np.ones(vol.shape[:3], np.uint8)
+    for rep in ('first', 'second'):
+        t0 = time.time()
+        deb = debiasRician(noisy, SNR, mask, scheme, device='cuda')
+        debias_s = time.time() - t0
+        log(f'13f: debiasRician on the card ({rep}): {debias_s:.3f} s')
+    vox = noisy.reshape(-1, scheme.nS)
+    sig = vox[:, scheme.b0_idx].mean(1, keepdims=True) / SNR
+    S_dev = torch.from_numpy(vox).cuda()
+    s_dev = torch.from_numpy(sig).cuda()
+    batch_ms = cuda_ms(lambda: debias_rician_batch(S_dev, s_dev), 3)
+    del S_dev, s_dev
+    sel = np.random.RandomState(1).choice(vox.shape[0],
+                                          min(4096, vox.shape[0]),
+                                          replace=False)
+    cpu = debias_rician_batch(torch.from_numpy(vox[sel]),
+                              torch.from_numpy(sig[sel])).numpy()
+    card = deb.reshape(-1, scheme.nS)[sel]
+    err = np.abs(card - cpu)
+    far = vox[sel] > 2 * sig[sel]
+    rel = float((err[far] / cpu[far]).max())
+    log(f'13f: debias_rician_batch on the card {batch_ms:.3f} ms for '
+        f'{vox.size} samples (CUDA events); card against CPU on 4096 voxels: '
+        f'max relative difference {rel:.3g} above 2 sigma, max |diff| / '
+        f'sigma {float((err / sig[sel]).max()):.3g} overall')
+    check(bool((err <= DEBIAS_RTOL * np.abs(cpu)
+                + DEBIAS_ATOL * sig[sel]).all()),
+          'the debias on the card disagrees with the CPU')
+    ev = amico_tpu_torch.Evaluation(study, 'subj_rician', device='cuda')
+    ev.set_config('doDebiasSignal', True)
+    ev.set_config('DWI-SNR', SNR)
+    t0 = time.time()
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    load_s = time.time() - t0
+    ev.set_model('NODDI')
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    t0 = time.time()
+    ev.fit()
+    fit_s = time.time() - t0
+    maps = ev.RESULTS['MAPs'][ev.niiMASK_img == 1]
+    agree = direction_agreement(ev, lut_true)
+    log(f'13f: load_data with doDebiasSignal {load_s:.3f} s, NODDI fit '
+        f'{fit_s:.3f} s; NDI/ODI/FWF medians '
+        f'{np.round(np.median(maps, 0), 4).tolist()}; DTI directions on '
+        f'the true LUT direction for {agree:.4f} of voxels')
+    check(bool(np.isfinite(maps).all() and (maps >= 0).all()
+               and (maps <= 1).all()), 'the debiased fit\'s maps are bad')
+
+
+def phase_study(study, fw_study, tmp, noddi_maps, lut_true, kernels,
+                htable, scheme):
+    """Phase 13, the study path."""
+    from amico_tpu_torch.testing import demo_voxels, write_demo_subject
+    t_phase = time.time()
+    phase_study_cli(study, tmp)
+    t0 = time.time()
+    y8, _, _ = demo_voxels(N_VOXELS, kernels, htable, seed=8)
+    write_demo_subject(os.path.join(study, 'subj8'), scheme, y8, VOL_DIM)
+    del y8
+    log(f'13: seed-8 subject written: {time.time() - t0:.1f} s')
+    sweep_maps = phase_sweep(study, tmp)
+    phase_crash_resume(study, tmp, sweep_maps)
+    ev = phase_streaming(study, fw_study, noddi_maps)
+    phase_dti_methods(ev, lut_true)
+    phase_profiler(ev, tmp)
+    del ev
+    phase_debias(study, lut_true)
+    log(f'13: study path {time.time() - t_phase:.1f} s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1069,8 +1520,7 @@ def main():
         del y
         log(f'subject written: {time.time() - t0:.1f} s')
         launches, noddi_maps = phase_main_path(study, lut_true)
-        noddi_study = study
-        del lut_true
+        noddi_study, noddi_lut_true = study, lut_true
         qp_err, (qp_ms, qp_plain_ms, qp_bound_ms, qp_bound_by) = \
             phase_qp_vs_twin(scheme, tmp)
         model, fw_kernels, htable = demo_freewater(
@@ -1085,6 +1535,7 @@ def main():
         del y, W
         log(f'FreeWater subject written: {time.time() - t0:.1f} s')
         qp_launches = phase_fw_main_path(study, lut_true, aniso)
+        fw_study = study
         t1_launches, t1_err, (t1_ms, t1_plain_ms, t1_lib_ms, t1_bound_ms,
                               t1_bound_by) = phase_loc_probe()
         t0 = time.time()
@@ -1115,6 +1566,8 @@ def main():
         del y
         log(f'SANDI subject written: {time.time() - t0:.1f} s')
         phase_sandi(study)
+        phase_study(noddi_study, fw_study, tmp, noddi_maps, noddi_lut_true,
+                    kernels, htable, scheme)
     from amico_tpu_torch.ops import native
     check(native.available(), "the port's native host library did not load")
     loaded = sorted(m for m in sys.modules

@@ -18,17 +18,25 @@ FACADE_MAPS = ('fit_NDI', 'fit_ODI', 'fit_FWF', 'fit_dir', 'fit_NRMSE',
                'fit_NDI_modulated', 'fit_ODI_modulated')
 
 
-def run_port_facade(study, home):
-    """tests/test_golden.py::run_facade_study's recipe through the port;
-    returns {map name: array} and the config.pickle key set."""
+def run_port_facade(study, home, config=None, jax_package=False):
+    """tests/test_golden.py::run_facade_study's recipe through the port (or,
+    with ``jax_package``, through amico_tpu), with ``config`` set before
+    load_data; returns {map name: array} and the config.pickle key set."""
     os.environ['AMICO_TPU_HOME'] = home
     import torch
     torch.set_num_threads(1)
-    import amico_tpu_torch
-    from amico_tpu_torch.io import nifti
-    ev = amico_tpu_torch.Evaluation(study, 'subj', device='cpu')
+    if jax_package:
+        import amico_tpu as pkg
+        from amico_tpu.io import nifti
+        ev = pkg.Evaluation(study, 'subj')
+    else:
+        import amico_tpu_torch as pkg
+        from amico_tpu_torch.io import nifti
+        ev = pkg.Evaluation(study, 'subj', device='cpu')
     ev.set_config('doComputeNRMSE', True)
     ev.set_config('doSaveModulatedMaps', True)
+    for k, v in (config or {}).items():
+        ev.set_config(k, v)
     ev.load_data(dwi_filename='DWI.nii.gz', scheme_filename='DWI.scheme')
     ev.set_model('NODDI')
     ev.model.set(IC_VFs=np.linspace(0.3, 0.99, 4),
@@ -45,18 +53,20 @@ def run_port_facade(study, home):
     return maps, set(cfg)
 
 
-def check_against_golden(maps, cfg_keys):
-    """tests/test_golden.py::test_facade_golden's bounds."""
-    fixture = np.load(os.path.join(DATA, 'golden_facade.npz'))
+def check_against_golden(maps, cfg_keys, fixture=None):
+    """tests/test_golden.py::test_facade_golden's bounds, against its
+    fixture or against ``fixture``'s maps."""
+    if fixture is None:
+        fixture = np.load(os.path.join(DATA, 'golden_facade.npz'))
+        missing = set(fixture['config_keys'].tolist()) - cfg_keys
+        assert not missing, f'config.pickle lost keys: {sorted(missing)}'
+        assert 'device' in cfg_keys
     for name in FACADE_MAPS:
         ref = fixture[name]
         assert maps[name].shape == ref.shape, name
         err = np.abs(maps[name] - ref)
         assert np.percentile(err, 95) < 1e-3, (name, np.percentile(err, 95))
         assert err.max() < 5e-3, (name, err.max())
-    missing = set(fixture['config_keys'].tolist()) - cfg_keys
-    assert not missing, f'config.pickle lost keys: {sorted(missing)}'
-    assert 'device' in cfg_keys
 
 
 @pytest.fixture
@@ -83,7 +93,8 @@ def test_facade_runs_without_jax(study, tmp_path):
         "    amico_tpu_torch.__path__, 'amico_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert 'amico_tpu_torch.ops.native' in names, names\n"
+        "for name in ('ops.native', 'preproc', 'sweep', 'cli', '__main__'):\n"
+        "    assert 'amico_tpu_torch.' + name in names, names\n"
         "from amico_tpu_torch.ops import native\n"
         "assert native.available()\n"
         "assert not any(m.split('.')[0] in ('jax', 'amico_tpu')\n"
@@ -175,7 +186,7 @@ def test_model_zoo(tmp_path):
 def test_top_level_api_matches_the_jax_packages():
     """Every name of amico_tpu.__all__, and the submodules a reference
     script reaches as attributes, resolve on the port to the port's own
-    objects; preproc raises until it is ported."""
+    objects, preproc, sweep and cli among them."""
     import amico_tpu
     import amico_tpu_torch
     for name in amico_tpu.__all__ + ['util', 'scheme', 'synthesis', 'lut']:
@@ -193,19 +204,29 @@ def test_top_level_api_matches_the_jax_packages():
         sorted(amico_tpu.util.__all__)
     assert sorted(amico_tpu_torch.scheme.__all__) == \
         sorted(amico_tpu.scheme.__all__)
-    with pytest.raises(NotImplementedError, match='queue 1, entry 7'):
-        amico_tpu_torch.preproc
+    import amico_tpu.preproc
+    import amico_tpu.sweep
+    for name, names in (('preproc', ('_rician_mean', 'debias_rician_batch',
+                                     'debiasRician')),
+                        ('sweep', ('SubjectSweep',)),
+                        ('cli', ('main', 'build_parser'))):
+        mod = getattr(amico_tpu_torch, name)
+        assert mod.__name__ == f'amico_tpu_torch.{name}'
+        for attr in names:
+            assert callable(getattr(mod, attr)), (name, attr)
+            if name != 'cli':
+                assert hasattr(getattr(amico_tpu, name), attr)
 
 
 @pytest.mark.parametrize('key,value', [('distributed', True),
-                                       ('profile_dir', '/nonexistent'),
-                                       ('doDebiasSignal', True)])
+                                       ('mesh', 'a device mesh')])
 def test_unported_config_raises(study, tmp_path, key, value):
+    """The multi-host and device-mesh fits stay ROADMAP work and raise."""
     os.environ['AMICO_TPU_HOME'] = str(tmp_path / 'home')
     import amico_tpu_torch
     ev = amico_tpu_torch.Evaluation(study, 'subj', device='cpu')
     ev.set_config(key, value)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, entry 10'):
         ev.load_data(dwi_filename='DWI.nii.gz', scheme_filename='DWI.scheme')
         ev.set_model('NODDI')
         ev.model.set(IC_VFs=np.linspace(0.3, 0.99, 4),
@@ -213,3 +234,31 @@ def test_unported_config_raises(study, tmp_path, key, value):
         ev.generate_kernels(ndirs=500)
         ev.load_kernels()
         ev.fit()
+
+
+def test_profile_dir_config(study, tmp_path):
+    """profile_dir, once a raise case: the facade writes a torch.profiler
+    trace holding the 'fit' range, and its maps hold the golden's bounds."""
+    import glob
+    prof = tmp_path / 'prof'
+    check_against_golden(*run_port_facade(study, str(tmp_path / 'home'),
+                                          {'profile_dir': str(prof)}))
+    traces = glob.glob(str(prof / '*.pt.trace.json'))
+    assert len(traces) == 1, traces
+    with open(traces[0]) as f:
+        assert '"name": "fit"' in f.read()
+
+
+def test_debias_config_matches_jax(study, tmp_path):
+    """doDebiasSignal, once a raise case: the port's facade against the JAX
+    package's with the same SNR, at the golden's bounds."""
+    import shutil
+    cfg = {'doDebiasSignal': True, 'DWI-SNR': 25.0}
+    jax_study = str(tmp_path / 'jax_study')
+    shutil.copytree(study, jax_study)
+    ref, _ = run_port_facade(jax_study, str(tmp_path / 'jax_home'), cfg,
+                             jax_package=True)
+    maps, keys = run_port_facade(study, str(tmp_path / 'home'), cfg)
+    check_against_golden(maps, keys, fixture=ref)
+    plain, _ = run_port_facade(study, str(tmp_path / 'home'))
+    assert not np.array_equal(plain['fit_NDI'], maps['fit_NDI'])
