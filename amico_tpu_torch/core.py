@@ -16,8 +16,11 @@ rule); the DTI direction fit and the model's tile driver share that upload.
 Beyond the budget the DTI fit takes the host array and the tile driver
 streams host-tiled chunks.  The Rician debias runs on the same device
 inside ``load_data``; ``profile_dir`` records the model fit with
-``torch.profiler``.  Single host only: the dist/mesh branches are ROADMAP
-work and raise when asked for.
+``torch.profiler``.  The ``mesh`` config (``parallel.make_mesh``) spreads
+the tile driver's chunks over the cards of one process; ``distributed``
+(after ``parallel.dist.initialize``) gives each process a slab of the
+voxels on its own card, gathers the maps on every process and lets process
+0 alone write them, as the JAX facade does.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from . import models as _models
 from . import pipeline as _pl
 from .device import DEFAULT_DEVICE, resolve_device
 from .models.base import DEFAULT_MAX_DEVICE_BYTES
+from .parallel import dist
 
 try:
     from threadpoolctl import ThreadpoolController
@@ -103,9 +107,11 @@ def _default_config(study_path, subject, output_path, device) -> dict:
         # 'auto' | 'reference' | 'generated': where direction sets and the
         # high-res gradient table come from (amico_tpu.ops.sphere)
         direction_source='auto',
-        # JAX-package keys kept for the config key set; setting them raises
-        # until their ROADMAP item (queue 1 entry 10) is ported
+        # multi-process fit (parallel/dist.py): per-process voxel slabs,
+        # gathered maps, writes by process 0
         distributed=False,
+        # a parallel.make_mesh() Mesh: the tile driver's chunks go to its
+        # devices round robin (models/base.py)
         mesh=None,
         # directory for a torch.profiler trace of the model fit
         # (*.pt.trace.json, TensorBoard/Perfetto); None disables
@@ -164,6 +170,12 @@ class Evaluation:
             return contextlib.nullcontext()
         return self._controller.limit(limits=self.BLAS_nthreads or 1,
                                       user_api='blas')
+
+    def _distributed(self) -> bool:
+        """The ``distributed`` config within a group of several processes
+        (``parallel.dist.initialize``); without one a fit is whole."""
+        return bool(self.get_config('distributed')) \
+            and dist.process_count() > 1
 
     def _resolve_threads(self, key):
         v = self.get_config(key)
@@ -375,6 +387,38 @@ class Evaluation:
         self.model.scheme = self.scheme
         atoms_path = self.get_config('ATOMS_path')
         LOG(f'\n-> Creating LUT for "{self.model.name}" model:')
+
+        # under a distributed run a concurrent wipe and rebuild of a shared
+        # ATOMS_path is not safe: the coordinator generates first and the
+        # others wait at a barrier.  Then each of them checks its own path:
+        # on a shared filesystem the coordinator's LUT is there and is
+        # reused (even under regenerate=True: it was just built); on
+        # per-host copies nothing appeared and the process builds its own,
+        # with no other writer of that path left
+        spmd = self._distributed()
+        if spmd and not dist.is_coordinator():
+            dist.barrier('generate_kernels')
+            if regenerate and self._lut_is_current(atoms_path):
+                regenerate = False
+        try:
+            self._generate_kernels_body(regenerate, lmax, ndirs, atoms_path)
+        finally:
+            # the coordinator (also a failed one: the others then build for
+            # themselves) releases the waiters exactly once
+            if spmd and dist.is_coordinator():
+                dist.barrier('generate_kernels')
+
+    def _lut_is_current(self, atoms_path: str) -> bool:
+        """A completed LUT with a matching generation signature exists."""
+        meta_path = pjoin(atoms_path, 'lut_meta.pickle')
+        if not (glob.glob(pjoin(atoms_path, 'A_*.npy'))
+                and isfile(meta_path)):
+            return False
+        with open(meta_path, 'rb') as fid:
+            meta = pickle.load(fid)
+        return meta.get('gen_sig') == self._kernel_signature()
+
+    def _generate_kernels_body(self, regenerate, lmax, ndirs, atoms_path):
         meta_path = pjoin(atoms_path, 'lut_meta.pickle')
         if glob.glob(pjoin(atoms_path, 'A_*.npy')) and not regenerate:
             # lut_meta.pickle is the completion marker and pins the shell
@@ -468,7 +512,6 @@ class Evaluation:
                   'and "load_kernels()" first')
         if self.KERNELS['model'] != self.model.id:
             ERROR('Response functions were not created with the same model')
-        # the model's tile driver rejects mesh/distributed
         device = resolve_device(self.get_config('device'))
         method = _pl.resolve_dti_method(self.get_config('DTI_fit_method'))
         self.nthreads = self._resolve_threads('nthreads')
@@ -476,11 +519,13 @@ class Evaluation:
         self.set_config('fit_time', None)
         mask = self.niiMASK_img
         n_vox = int(np.count_nonzero(mask == 1))
+        dist_on = self._distributed()
         # the JAX facade's staging rule: the signal is staged on the device
-        # only for a single-host, direction-full fit within the budget
+        # only for a single-process, single-device, direction-full fit
+        # within the budget
         budget = int(self.get_config('max_device_bytes')
                      or DEFAULT_MAX_DEVICE_BYTES)
-        want_stage = (not self.get_config('distributed')
+        want_stage = (not dist_on
                       and self.get_config('mesh') is None
                       and not self.get_config('doDirectionalAverage')
                       and n_vox * int(self.niiDWI_img.shape[3]) * 4 <= budget)
@@ -501,6 +546,15 @@ class Evaluation:
                      np.zeros((1, self.y.shape[1]), np.float32)])
             else:
                 self.y = padded[:-1]
+            # multi-process: this process fits its slab of the voxels
+            # alone; the maps are gathered after the fit
+            y_full = self.y
+            if dist_on:
+                slab = dist.host_slab(n_vox)
+                self.y = y_full[slab]
+                LOG(f'\n-> Distributed fit: process {dist.process_index()}/'
+                    f'{dist.process_count()} takes voxels '
+                    f'[{slab.start}:{slab.stop}) of {n_vox}')
             if want_stage:
                 # one float32 upload, shared by the DTI fit and the tile
                 # driver
@@ -516,6 +570,8 @@ class Evaluation:
         peaks_filename = self.get_config('peaks_filename')
         if peaks_filename is not None:
             self.DIRs = self._load_peaks(peaks_filename, mask)
+            if dist_on:
+                self.DIRs = self.DIRs[slab]
         elif not self.get_config('doDirectionalAverage'):
             y_dti = (self._staged_y_ext_dev[1][:-1]
                      if self._staged_y_ext_dev is not None else self.y)
@@ -541,6 +597,16 @@ class Evaluation:
         LOG('   [ %s ]' % time.strftime(
             '%Hh %Mm %Ss', time.gmtime(self.get_config('fit_time'))))
 
+        t = time.time()
+        if dist_on:
+            with self.timers.stage('gather'):
+                results = {k: dist.allgather_rows(np.asarray(v), n_vox)
+                           for k, v in results.items()}
+                if self.DIRs is not None:
+                    self.DIRs = dist.allgather_rows(
+                        np.asarray(self.DIRs, np.float32), n_vox)
+            self.y = y_full
+        tf['gather_s'] = time.time() - t
         t = time.time()
         with self.timers.stage('scatter'):
             self.RESULTS = self._scatter_results(results, mask)
@@ -605,9 +671,18 @@ class Evaluation:
 
     # --------------------------------------------------------- save_results
     def save_results(self, path_suffix=None, save_dir_avg=False):
-        """Write parameter maps + metadata; config.pickle is written last."""
+        """Write parameter maps + metadata; config.pickle is written last.
+        In distributed runs only the coordinator writes (every process
+        holds the gathered maps); all processes meet at a barrier before
+        returning."""
         if self.RESULTS is None:
             ERROR('Model not fitted to the data; call "fit()" first')
+        dist_on = self._distributed()
+        if dist_on and not dist.is_coordinator():
+            LOG(f'\n-> Process {dist.process_index()}: the coordinator '
+                'writes the results; waiting at the barrier')
+            dist.barrier('save_results')
+            return
         suffix = f'_{path_suffix}' if path_suffix else ''
         if self.get_config('OUTPUT_path') is None:
             rel = pjoin('AMICO', self.model.id) + suffix
@@ -665,7 +740,8 @@ class Evaluation:
                         'doDirectionalAverage before load_data()')
 
         # maps are compressed in parallel (zlib releases the GIL) and all
-        # complete before config.pickle, the completion marker
+        # complete before config.pickle, the completion marker (the
+        # resume marker of sweep.py)
         from concurrent.futures import ThreadPoolExecutor
         with self.timers.stage('save_results'), ThreadPoolExecutor(
                 max_workers=min(len(jobs), max(2, cpu_count() or 2))) as ex:
@@ -678,6 +754,8 @@ class Evaluation:
                 fut.result()
                 PRINT(' [OK]')
 
+        # a value that does not pickle (a live device mesh) is recorded by
+        # its repr
         PRINT('\t- configuration', end=' ')
         cfg = {}
         for k, v in self.CONFIG.items():
@@ -691,4 +769,6 @@ class Evaluation:
             pickle.dump(cfg, fid, protocol=2)
         replace(tmp_cfg, pjoin(out_dir, 'config.pickle'))
         PRINT(' [OK]')
+        if dist_on:
+            dist.barrier('save_results')
         LOG('   [ DONE ]')

@@ -7,9 +7,11 @@ constant are copied from the JAX package, whose module imports jax.
 uploads the padded (N+1, nS) float32 signal once and gathers each chunk on
 the device from the tile plan (``index_select``); beyond it, it streams
 host-tiled chunks from pinned memory with a bounded number in flight.  The
-chunking is the same in both modes, so are the maps.  Chunks are pulled as
-late as the in-flight window and the ``fit_checkpoint`` cadence allow, and
-the outputs are untiled to (N, ...) NumPy arrays.
+chunking is the same in both modes, so are the maps.  Under a device mesh
+(the ``mesh`` config) whole chunks go to the mesh's devices round robin,
+with the same chunking and maps.  Chunks are pulled as late as the
+in-flight window and the ``fit_checkpoint`` cadence allow, and the outputs
+are untiled to (N, ...) NumPy arrays.
 """
 from __future__ import annotations
 
@@ -74,6 +76,15 @@ DEFAULT_MAX_DEVICE_BYTES = 4 << 30
 
 
 _SECOND_STREAMS: dict = {}
+
+
+def _concrete(device) -> torch.device:
+    """``device`` with its index: 'cuda' is the current card, so that a
+    tensor's device (always indexed) compares equal to it."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
 
 
 def _chunk_streams(device) -> list:
@@ -246,27 +257,41 @@ class BaseModel(ABC):
                         np.int64)
 
     # ------------------------------------------------- tiled fit driver
-    def _run_tiled_fit(self, evaluation, fit_chunk_fn, n_outputs_like: dict,
+    def _run_tiled_fit(self, evaluation, chunk_fn_for, n_outputs_like: dict,
                        device: torch.device):
-        """Drive ``fit_chunk_fn`` over all voxels, tile by tile.
+        """Drive the model's chunk function over all voxels, tile by tile.
 
-        ``fit_chunk_fn(Y (C, M, nS) f32, dirs (C,) int64, valid (C, M)
-        bool)`` gets device tensors and returns a dict of device tensors
-        with leading dims (C, M).  ``n_outputs_like``: {name: trailing
-        shape} of the outputs.  Returns a dict of (N, ...) float32 NumPy
-        arrays in the original voxel order.
+        ``chunk_fn_for(device)`` builds the model's constants on ``device``
+        and returns the chunk function there: ``fit_chunk(Y (C, M, nS) f32,
+        dirs (C,) int64, valid (C, M) bool)`` gets tensors on that device
+        and returns a dict of tensors with leading dims (C, M).
+        ``n_outputs_like``: {name: trailing shape} of the outputs.  Returns
+        a dict of (N, ...) float32 NumPy arrays in the original voxel
+        order.
+
+        Every chunk goes to ``device``, or with the ``mesh`` config
+        (``parallel.make_mesh``) whole chunks go to the mesh's devices
+        round robin, each device with its own constants and its own copy
+        of the staged signal.  The chunk boundaries are those of a
+        one-device fit whatever the mesh, and so are the maps: a chunk is
+        never split, since the stagewise solver's exits are batch-wide
+        over a chunk.  The devices of the first chunks are recorded as
+        ``_last_fit_devices``.
 
         With the ``fit_checkpoint`` config, every ``checkpoint_every``
         dispatched chunks the chunks done so far are written to that file
         (``plan_fp``, ``done_until`` and one array per output, replaced
         atomically); a rerun of the same fit skips the chunks below
         ``done_until``, and the file is deleted when the fit completes."""
+        from ..parallel.mesh import Mesh, replicated
         t_enter = time.time()
-        for key in ('mesh', 'distributed'):
-            if evaluation.get_config(key):
-                raise NotImplementedError(
-                    f'config "{key}" is not ported yet (ROADMAP queue 1, '
-                    'entry 10: mesh and dist)')
+        mesh = evaluation.get_config('mesh')
+        if mesh is None:
+            mesh = Mesh([device])
+        elif not isinstance(mesh, Mesh):
+            ERROR('config "mesh" must be a mesh from '
+                  f'amico_tpu_torch.parallel.make_mesh(), got {mesh!r}')
+        devices = [_concrete(d) for d in mesh.devices]
         y = np.asarray(evaluation.y)
         lut_idx = _lut.dir_to_lut_idx(np.asarray(evaluation.DIRs, np.float64),
                                       evaluation.htable)
@@ -278,10 +303,11 @@ class BaseModel(ABC):
         chunk_tiles = max(1, vpc // tile_size)
         plan = build_tile_plan(lut_idx, tile_size)
 
-        # the JAX driver's rule on the float32 bytes that would be staged:
-        # within the budget the flat signal is staged once and each chunk
-        # gathered on the device; beyond it host-tiled chunks stream, at
-        # most max_inflight of them on the device at once, none cached
+        # the JAX driver's rule on the float32 bytes that would be staged
+        # (on each device of a mesh): within the budget the flat signal is
+        # staged once and each chunk gathered on the device; beyond it
+        # host-tiled chunks stream, at most max_inflight of them on the
+        # devices at once, none cached
         budget = int(evaluation.get_config('max_device_bytes')
                      or DEFAULT_MAX_DEVICE_BYTES)
         M, nS = tile_size, y.shape[1]
@@ -306,23 +332,32 @@ class BaseModel(ABC):
                         for k in out_tiles:
                             out_tiles[k][:done_until] = ck[k][:done_until]
 
+        # per device of the mesh, in mesh order: the staged signal and the
+        # plan's permutation (gathered mode), the tile directions and masks
+        place = replicated(Mesh(devices)).place
+        shared = 0
         if device_gather:
+            # the facade's upload (shared with the DTI fit) on its device
+            facade = {}
             staged = getattr(evaluation, '_staged_y_ext_dev', None)
             if staged is not None and staged[0] is y \
-                    and staged[1].device == device \
                     and tuple(staged[1].shape) == (y.shape[0] + 1, nS):
-                y_ext = staged[1]       # the facade's upload, shared with DTI
-            else:
-                y_ext = torch.from_numpy(np.concatenate(
+                facade[staged[1].device] = staged[1]
+            shared = int(any(d in facade for d in devices))
+            if not all(d in facade for d in devices):
+                host = torch.from_numpy(np.concatenate(
                     [y.astype(np.float32, copy=False),
-                     np.zeros((1, nS), np.float32)])).to(device)
-            perm = torch.from_numpy(plan.perm.astype(np.int64)).to(device)
+                     np.zeros((1, nS), np.float32)]))
+            y_ext = [facade[d] if d in facade else host.to(d)
+                     for d in devices]
+            perm = place(plan.perm.astype(np.int64))
         else:
             Y_host = tile_voxels(plan, y.astype(np.float32, copy=False))
-        dirs_t = torch.from_numpy(plan.tile_dirs.astype(np.int64)).to(device)
-        valid_t = torch.from_numpy(plan.valid).to(device)
+        dirs_t = place(plan.tile_dirs.astype(np.int64))
+        valid_t = place(plan.valid)
         timers = {'setup_s': time.time() - t_enter,
-                  'streamed': int(not device_gather)}
+                  'streamed': int(not device_gather),
+                  'staged_shared': shared}
 
         def pull(item):
             """Copy one chunk's outputs to the host, once the stream that
@@ -336,28 +371,38 @@ class BaseModel(ABC):
         t_loop = time.time()
         pending = []
         n_dispatched = 0
-        streams = _chunk_streams(device)
+        # each device's chunk function, built before its streams are taken:
+        # the second stream waits for the constants queued on the current
+        fns = [chunk_fn_for(d) for d in devices]
+        streams = [_chunk_streams(d) for d in devices]
+        first_devices = []
         chunks = iter_tile_chunks(plan.n_tiles, chunk_tiles)
         for i, (start, stop, _pad) in enumerate(chunks):
             if stop <= done_until:
                 continue
             # the last chunk runs short instead of padded: eager dispatch
             # has no compiled shape to keep
-            stream = streams[i % len(streams)]
+            j = i % len(devices)
+            d = devices[j]
+            stream = streams[j][(i // len(devices)) % len(streams[j])]
             with torch.cuda.stream(stream):
                 if device_gather:
-                    idx = perm[start * M:stop * M]
-                    Yc = y_ext.index_select(0, idx).view(stop - start, M, nS)
+                    idx = perm[j][start * M:stop * M]
+                    Yc = y_ext[j].index_select(0, idx).view(stop - start, M,
+                                                            nS)
                 else:
                     Yc = torch.from_numpy(Y_host[start:stop])
-                    if device.type == 'cuda':
-                        Yc = Yc.pin_memory().to(device, non_blocking=True)
-                res = fit_chunk_fn(Yc, dirs_t[start:stop], valid_t[start:stop])
+                    if d.type == 'cuda':
+                        Yc = Yc.pin_memory().to(d, non_blocking=True)
+                res = fns[j](Yc, dirs_t[j][start:stop],
+                             valid_t[j][start:stop])
                 done = None
                 if stream is not None:
                     done = torch.cuda.Event()
                     done.record(stream)
             del Yc
+            if len(first_devices) < len(devices):
+                first_devices.append(d)
             pending.append((start, stop, res, done))
             n_dispatched += 1
             if len(pending) >= max_inflight:
@@ -371,8 +416,9 @@ class BaseModel(ABC):
                 os.replace(ckpt_path + '.tmp.npz', ckpt_path)
         timers['dispatch_s'] = time.time() - t_loop
         timers['n_chunks'] = n_dispatched
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
+        for d in dict.fromkeys(devices):
+            if d.type == 'cuda':
+                torch.cuda.synchronize(d)
         timers['device_s'] = time.time() - t_loop - timers['dispatch_s']
 
         t_pull = time.time()
@@ -385,4 +431,5 @@ class BaseModel(ABC):
         out = {k: untile_voxels(plan, v) for k, v in out_tiles.items()}
         timers['untile_s'] = time.time() - t_unt
         self._last_fit_timers = timers
+        self._last_fit_devices = first_devices
         return out

@@ -167,18 +167,23 @@ class CylinderZeppelinBall(BaseModel):
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
         n_perp = len(self.d_perps)
-        c = self.prepare(evaluation.KERNELS, device)
-        Rs = torch.as_tensor(self.Rs, dtype=torch.float32, device=device)
 
-        def fit_chunk(Y, dirs, valid):
-            A = c['A_all'][dirs]                           # (C, nS, n)
-            x = solve_tiles(c['G_all'][dirs], project(A, Y), c['L_all'][dirs],
-                            lam1, lam2, solver_kw=solver_kw, backend=backend)
-            out = {'estimates': czb_estimates(x, Rs, n_perp)
-                   * valid[..., None].to(x.dtype)}
-            out.update(error_maps(A, x, Y, configs['compute_rmse'],
-                                  configs['compute_nrmse']))
-            return out
+        def chunk_fn_for(device):
+            """The chunk function with the fit's constants on ``device``."""
+            c = self.prepare(evaluation.KERNELS, device)
+            Rs = torch.as_tensor(self.Rs, dtype=torch.float32, device=device)
+
+            def fit_chunk(Y, dirs, valid):
+                A = c['A_all'][dirs]                       # (C, nS, n)
+                x = solve_tiles(c['G_all'][dirs], project(A, Y),
+                                c['L_all'][dirs], lam1, lam2,
+                                solver_kw=solver_kw, backend=backend)
+                out = {'estimates': czb_estimates(x, Rs, n_perp)
+                       * valid[..., None].to(x.dtype)}
+                out.update(error_maps(A, x, Y, configs['compute_rmse'],
+                                      configs['compute_nrmse']))
+                return out
+            return fit_chunk
 
         shapes = {'estimates': (len(self.maps_name),)}
         if configs['compute_rmse']:
@@ -186,4 +191,5 @@ class CylinderZeppelinBall(BaseModel):
         if configs['compute_nrmse']:
             shapes['nrmse'] = ()
         with torch.no_grad():
-            return self._run_tiled_fit(evaluation, fit_chunk, shapes, device)
+            return self._run_tiled_fit(evaluation, chunk_fn_for, shapes,
+                                       device)

@@ -154,30 +154,35 @@ class FreeWater(BaseModel):
         kernels = evaluation.KERNELS
         n_perp = kernels['D'].shape[0]
         is_mouse = self.type == 'Mouse'
-        c = self.prepare(kernels, device)
 
-        def fit_chunk(Y, dirs, valid):
-            A = c['A_all'][dirs]                           # (C, nS, n)
-            x = solve_tiles(c['G_all'][dirs], project(A, Y),
-                            c['L_all'][dirs], lam1, lam2,
-                            solver_kw=solver_kw, backend=backend)
-            x_sum = x.sum(-1) + 1e-16
-            v = x[..., :n_perp].sum(-1) / x_sum
-            maps = [v, 1.0 - v]
-            if is_mouse:
-                maps += [x[..., n_perp] / x_sum, x[..., n_perp + 1] / x_sum]
-            vmask = valid[..., None].to(x.dtype)
-            out = {'estimates': torch.stack(maps, -1) * vmask}
-            out.update(error_maps(A, x, Y, configs['compute_rmse'],
-                                  configs['compute_nrmse']))
-            if save_corrected:
-                # zero the fiber coefficients, subtract the isotropic
-                # prediction, clip at 0
-                x_iso = torch.cat([torch.zeros_like(x[..., :n_perp]),
-                                   x[..., n_perp:]], -1)
-                out['y_corrected'] = torch.clamp(Y - predict(A, x_iso),
-                                                 min=0.0) * vmask
-            return out
+        def chunk_fn_for(device):
+            """The chunk function with the fit's constants on ``device``."""
+            c = self.prepare(kernels, device)
+
+            def fit_chunk(Y, dirs, valid):
+                A = c['A_all'][dirs]                       # (C, nS, n)
+                x = solve_tiles(c['G_all'][dirs], project(A, Y),
+                                c['L_all'][dirs], lam1, lam2,
+                                solver_kw=solver_kw, backend=backend)
+                x_sum = x.sum(-1) + 1e-16
+                v = x[..., :n_perp].sum(-1) / x_sum
+                maps = [v, 1.0 - v]
+                if is_mouse:
+                    maps += [x[..., n_perp] / x_sum,
+                             x[..., n_perp + 1] / x_sum]
+                vmask = valid[..., None].to(x.dtype)
+                out = {'estimates': torch.stack(maps, -1) * vmask}
+                out.update(error_maps(A, x, Y, configs['compute_rmse'],
+                                      configs['compute_nrmse']))
+                if save_corrected:
+                    # zero the fiber coefficients, subtract the isotropic
+                    # prediction, clip at 0
+                    x_iso = torch.cat([torch.zeros_like(x[..., :n_perp]),
+                                       x[..., n_perp:]], -1)
+                    out['y_corrected'] = torch.clamp(Y - predict(A, x_iso),
+                                                     min=0.0) * vmask
+                return out
+            return fit_chunk
 
         shapes = {'estimates': (len(self.maps_name),)}
         if configs['compute_rmse']:
@@ -187,4 +192,5 @@ class FreeWater(BaseModel):
         if save_corrected:
             shapes['y_corrected'] = (kernels['D'].shape[2],)
         with torch.no_grad():
-            return self._run_tiled_fit(evaluation, fit_chunk, shapes, device)
+            return self._run_tiled_fit(evaluation, chunk_fn_for, shapes,
+                                       device)

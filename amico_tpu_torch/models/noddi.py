@@ -315,83 +315,88 @@ class NODDI(BaseModel):
         is_exvivo = bool(self.isExvivo)
         want_x = configs['compute_rmse'] or configs['compute_nrmse']
         kernels = evaluation.KERNELS
-        c = self.prepare(kernels, device,
-                         bool(evaluation.get_config('doMergeB0')))
-        rows = c['rows_dwi']
+        merged_b0 = bool(evaluation.get_config('doMergeB0'))
         n_wm = kernels['wm'].shape[0]
-        na = c['A_all'].shape[-1]
-        nb_m = nb_p = None
-        if tb_cg:
-            nb_m, nb_p = (torch.as_tensor(t, device=device)
-                          for t in _kappa_neighbours(
-                              np.asarray(kernels['icvf']),
-                              np.asarray(kernels['kappa'])))
+        nb = _kappa_neighbours(np.asarray(kernels['icvf']),
+                               np.asarray(kernels['kappa'])) if tb_cg else None
 
-        def estimates(x):
-            """NDI, ODI, FWF (and dot) from the debiased x (C, M, na)."""
-            sum_atoms = x.sum(-1) + 1e-16
-            xn_wm = x[..., :n_wm] / sum_atoms[..., None]
-            sum_wm = xn_wm.sum(-1) + 1e-16
-            f1 = (c['icvf'] * xn_wm).sum(-1) / sum_wm
-            f2 = ((1.0 - c['icvf']) * xn_wm).sum(-1) / sum_wm
-            k1 = (c['kappa'] * xn_wm).sum(-1) / sum_wm
-            ndi = f1 / (f1 + f2 + 1e-16)
-            odi = 2.0 / np.pi * torch.atan2(torch.ones_like(k1), k1)
-            maps = [ndi, odi, x[..., -1] / sum_atoms]
-            if is_exvivo:
-                maps.append(x[..., na - 2] / sum_atoms)
-            return torch.stack(maps, -1)
-
-        def solve_stagewise(A_full, b1, Y, dirs):
-            """The JAX XLA path's three solves (models.pyx:911-942)."""
-            G1, L1 = c['G1_all'][dirs], c['L1_all'][dirs]
-            x1 = solve_tiles(G1, b1, L1, 0.0, 0.0, solver_kw=kw1,
-                             backend='xla')
-            Y2 = Y.index_select(-1, rows) - x1[..., -1:] * c['iso_dwi']
-            if is_exvivo:
-                Y2 = Y2 - x1[..., na - 2:na - 1]
-            b2 = project(c['A2_all'][dirs], torch.clamp(Y2, min=0.0))
-            G2 = c['G2_all'][dirs]
-            x2 = solve_tiles(G2, b2, c['L2_all'][dirs], lam1, lam2,
-                             solver_kw=kw2, backend='xla')
+        def chunk_fn_for(device):
+            """The chunk function with the fit's constants on ``device``."""
+            c = self.prepare(kernels, device, merged_b0)
+            rows = c['rows_dwi']
+            na = c['A_all'].shape[-1]
+            nb_m = nb_p = None
             if tb_cg:
-                x2 = noddi_stage2_tiebreak(G2, b2, x2, lam1, lam2, nb_m,
-                                           nb_p, cg_iters=tb_cg)
-            # debias on the positive support, the working set seeded with
-            # it and CG warm-started from the stage-1 solution
-            mask = torch.cat([(x2 > 0.0).to(Y.dtype),
-                              torch.ones(Y.shape[:2] + (na - n_wm,),
-                                         dtype=Y.dtype, device=Y.device)],
-                             -1)
-            x = solve_tiles(G1, b1, L1, 0.0, 0.0, mask=mask, m0=mask,
-                            x0=x1 * mask, solver_kw=kw3, backend='xla')
-            return estimates(x), x
+                nb_m, nb_p = (torch.as_tensor(t, device=device) for t in nb)
 
-        def fit_chunk(Y, dirs, valid):
-            A_full = c['A_all'][dirs]                      # (C, nS, na)
-            b1 = project(A_full, Y)
-            if stagewise:
-                est, x = solve_stagewise(A_full, b1, Y, dirs)
-            else:
-                out = noddi_fused_tiles(
-                    c['G1_all'][dirs], c['G2_all'][dirs], b1,
-                    Y.index_select(-1, rows),
-                    c['A2_all'][dirs].transpose(1, 2),   # no copy for K1
-                    c['iso_dwi'], c['icvf'], c['kappa'], lam1=lam1,
-                    lam2=lam2, stage_iters=stage_iters, want_x=want_x,
-                    is_exvivo=is_exvivo, tiebreak_cg=tb_cg, nb_minus=nb_m,
-                    nb_plus=nb_p)
-                est, x = out if want_x else (out, None)
-            vmask = valid[..., None].to(est.dtype)
-            res = {'estimates': est * vmask}
-            if want_x:
-                res.update(error_maps(A_full, x, Y, configs['compute_rmse'],
-                                      configs['compute_nrmse']))
-            if modulated:
-                tf = 1.0 - est[..., 2]
-                res['estimates_mod'] = torch.stack(
-                    [est[..., 0] * tf, est[..., 1] * tf], -1) * vmask
-            return res
+            def estimates(x):
+                """NDI, ODI, FWF (and dot) from the debiased x (C, M,
+                na)."""
+                sum_atoms = x.sum(-1) + 1e-16
+                xn_wm = x[..., :n_wm] / sum_atoms[..., None]
+                sum_wm = xn_wm.sum(-1) + 1e-16
+                f1 = (c['icvf'] * xn_wm).sum(-1) / sum_wm
+                f2 = ((1.0 - c['icvf']) * xn_wm).sum(-1) / sum_wm
+                k1 = (c['kappa'] * xn_wm).sum(-1) / sum_wm
+                ndi = f1 / (f1 + f2 + 1e-16)
+                odi = 2.0 / np.pi * torch.atan2(torch.ones_like(k1), k1)
+                maps = [ndi, odi, x[..., -1] / sum_atoms]
+                if is_exvivo:
+                    maps.append(x[..., na - 2] / sum_atoms)
+                return torch.stack(maps, -1)
+
+            def solve_stagewise(A_full, b1, Y, dirs):
+                """The JAX XLA path's three solves (models.pyx:911-942)."""
+                G1, L1 = c['G1_all'][dirs], c['L1_all'][dirs]
+                x1 = solve_tiles(G1, b1, L1, 0.0, 0.0, solver_kw=kw1,
+                                 backend='xla')
+                Y2 = Y.index_select(-1, rows) - x1[..., -1:] * c['iso_dwi']
+                if is_exvivo:
+                    Y2 = Y2 - x1[..., na - 2:na - 1]
+                b2 = project(c['A2_all'][dirs], torch.clamp(Y2, min=0.0))
+                G2 = c['G2_all'][dirs]
+                x2 = solve_tiles(G2, b2, c['L2_all'][dirs], lam1, lam2,
+                                 solver_kw=kw2, backend='xla')
+                if tb_cg:
+                    x2 = noddi_stage2_tiebreak(G2, b2, x2, lam1, lam2, nb_m,
+                                               nb_p, cg_iters=tb_cg)
+                # debias on the positive support, the working set seeded
+                # with it and CG warm-started from the stage-1 solution
+                mask = torch.cat([(x2 > 0.0).to(Y.dtype),
+                                  torch.ones(Y.shape[:2] + (na - n_wm,),
+                                             dtype=Y.dtype, device=Y.device)],
+                                 -1)
+                x = solve_tiles(G1, b1, L1, 0.0, 0.0, mask=mask, m0=mask,
+                                x0=x1 * mask, solver_kw=kw3, backend='xla')
+                return estimates(x), x
+
+            def fit_chunk(Y, dirs, valid):
+                A_full = c['A_all'][dirs]                  # (C, nS, na)
+                b1 = project(A_full, Y)
+                if stagewise:
+                    est, x = solve_stagewise(A_full, b1, Y, dirs)
+                else:
+                    out = noddi_fused_tiles(
+                        c['G1_all'][dirs], c['G2_all'][dirs], b1,
+                        Y.index_select(-1, rows),
+                        c['A2_all'][dirs].transpose(1, 2),  # no copy for K1
+                        c['iso_dwi'], c['icvf'], c['kappa'], lam1=lam1,
+                        lam2=lam2, stage_iters=stage_iters, want_x=want_x,
+                        is_exvivo=is_exvivo, tiebreak_cg=tb_cg,
+                        nb_minus=nb_m, nb_plus=nb_p)
+                    est, x = out if want_x else (out, None)
+                vmask = valid[..., None].to(est.dtype)
+                res = {'estimates': est * vmask}
+                if want_x:
+                    res.update(error_maps(A_full, x, Y,
+                                          configs['compute_rmse'],
+                                          configs['compute_nrmse']))
+                if modulated:
+                    tf = 1.0 - est[..., 2]
+                    res['estimates_mod'] = torch.stack(
+                        [est[..., 0] * tf, est[..., 1] * tf], -1) * vmask
+                return res
+            return fit_chunk
 
         shapes = {'estimates': (len(self.maps_name),)}
         if configs['compute_rmse']:
@@ -401,4 +406,5 @@ class NODDI(BaseModel):
         if modulated:
             shapes['estimates_mod'] = (2,)
         with torch.no_grad():
-            return self._run_tiled_fit(evaluation, fit_chunk, shapes, device)
+            return self._run_tiled_fit(evaluation, chunk_fn_for, shapes,
+                                       device)

@@ -11,7 +11,9 @@ STEJSKALTANNER scheme and the ``doDirectionalAverage`` preprocessing.
 and ``resample`` are the JAX package's, in NumPy over the shared
 ``lut``/``synthesis`` modules.  ``fit`` is its direction-free chunked
 fit on the stagewise solver (:func:`amico_tpu_torch.ops.solvers.
-nneg_qp_batch`), the JAX package's only route for this model.
+nneg_qp_batch`), the JAX package's only route for this model, on the
+``device`` config's device: as in the JAX package, SANDI does not use the
+``mesh`` config.
 
 References
 ----------

@@ -5,9 +5,11 @@ subject granularity (a subject whose ``config.pickle`` exists is skipped)
 and chunk-level mid-fit checkpointing via the 'fit_checkpoint' config.
 The next subject's ``load_data`` runs on a background thread while the
 current one fits, and subjects sharing a scheme and parameters reuse one
-model instance and its resampled kernels.  Single host: the JAX package's
-multi-host (``distributed``) and device-mesh (``mesh``) branches raise
-until ROADMAP queue 1 entry 10 is ported.
+model instance and its resampled kernels.  ``mesh`` goes into each
+subject's config.  Under ``distributed`` (``parallel.dist``) every process
+runs the same sweep: the skip decision is the coordinator's, loads stay on
+the main thread, and a failed subject raises on every process instead of
+being recorded.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from os.path import join as pjoin
 import numpy as np
 
 from .core import Evaluation
+from .parallel import dist
 from .utils.logging import LOG, WARNING
 
 
@@ -75,9 +78,20 @@ class SubjectSweep:
                 bool(ev.get_config('doMergeB0')),
                 ev.get_config('direction_source'), self.b0_thr)
 
+    def _spmd(self) -> bool:
+        return bool(self.config.get('distributed')) \
+            and dist.process_count() > 1
+
     def _is_done(self, subject: str) -> bool:
-        return os.path.isfile(pjoin(self._result_dir(subject),
+        done = os.path.isfile(pjoin(self._result_dir(subject),
                                     'config.pickle'))
+        # distributed: only the coordinator writes config.pickle, so after
+        # a crash the processes' disks can disagree; the skip decision is
+        # the coordinator's on every process, or the collectives that
+        # follow pair up wrongly
+        if self._spmd():
+            done = bool(dist.broadcast_scalar(int(done)))
+        return done
 
     def _prepare(self, subject: str):
         """Build the subject's Evaluation and run load_data (host I/O +
@@ -93,27 +107,27 @@ class SubjectSweep:
         for k, v in self.config.items():
             if k != 'OUTPUT_path':
                 ev.set_config(k, v)
+        if self.mesh is not None:
+            ev.set_config('mesh', self.mesh)
         ev.load_data(self.dwi_filename, self.scheme_filename,
                      mask_filename=self.mask_filename, b0_thr=self.b0_thr)
         return ev
 
     def run(self, resume: bool = True, checkpoint: bool = True) -> dict:
         """Process all subjects; returns {subject: results_path}."""
-        if self.mesh is not None or self.config.get('mesh') is not None \
-                or self.config.get('distributed'):
-            raise NotImplementedError(
-                'a multi-host or device-mesh sweep is not ported yet '
-                '(ROADMAP queue 1, entry 10: mesh and dist)')
         # prefetch pipeline: while subject k fits/saves, subject k+1's
         # NIfTI load + preprocessing run on a background thread (the
         # native pass releases the GIL).  Costs: peak host memory holds
         # TWO preprocessed subject volumes, and at verbosity >= 2 the
         # prefetched subject's load messages interleave with the current
-        # subject's fit output.  Disabled when the Rician debias is on: it
-        # runs on the DEVICE inside load_data, and a background device
+        # subject's fit output.  Disabled when (a) distributed: _is_done's
+        # broadcast and the other collectives must stay on the main thread
+        # in their program order, or (b) the Rician debias is on: it runs
+        # on the DEVICE inside load_data, and a background device
         # allocation would race the active fit for device memory.  Opt
         # out: config={'prefetch': False}.
         prefetch_on = bool(self.config.get('prefetch', True)) \
+            and not self.config.get('distributed') \
             and not self.config.get('doDebiasSignal')
         ex = None
         pending = {}            # subject -> Future
@@ -187,5 +201,10 @@ class SubjectSweep:
                 self.results[subject] = self._result_dir(subject)
                 self.seconds[subject] = time.time() - t0
             except Exception as e:
+                # distributed: the other processes are (or will be) waiting
+                # in this subject's collectives; going on would pair the
+                # next subject's collectives with theirs
+                if self._spmd():
+                    raise
                 WARNING(f'[{subject}] failed: {e}')  # keep sweeping
                 self.results[subject] = f'FAILED: {e}'

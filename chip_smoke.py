@@ -88,7 +88,20 @@ Phases; any failure exits non-zero and prints no result line:
       against the CPU on 4,096 voxels, its time, then load_data with
       doDebiasSignal and a fit;
    g. a fit with ``profile_dir``: the trace names K1's kernel and ``fit``;
-   h. ``python -m amico_tpu_torch warmup --study`` (beside a) exits 0.
+   h. ``python -m amico_tpu_torch warmup --study`` (beside a) exits 0;
+14. mesh and multi-process execution (``amico_tpu_torch.parallel``):
+   a. phase 4's subject with ``mesh=make_mesh()`` (every local card): its
+      maps equal phase 4's bit for bit, with phase 4's K1 launches, and the
+      chunks' devices (``_last_fit_devices``);
+   b. phase 6's subject the same way: its maps equal phase 6's bit for bit,
+      with phase 6's K2 launches;
+   c. two processes (``python chip_smoke.py rank <r> ...``) with
+      ``distributed=True``, both on the card, meeting over gloo on a free
+      localhost port, fit phase 4's subject a slab each: the coordinator's
+      written maps against phase 4's, bit for bit (else within K1's
+      agreement bounds, with the reason logged); rank 1 writes nothing;
+      each rank's fit time, gather time (and the same gather again after a
+      barrier: the transfer alone) and K1 launches.
 
 The kernels are built in phase 2; every launch count is read from the main
 path's run alone (counts set to 0 just before it).  Each kernel's bound is
@@ -459,6 +472,8 @@ def phase_main_path(study, lut_true):
     log(f'first fit: {n_vox} voxels in {fit_s:.3f} s = {n_vox / fit_s:.0f} '
         'voxels/s')
     check(launches > 0, 'the main path never launched the fused kernel')
+    check(ev.model._last_fit_timers['staged_shared'] == 1,
+          "the tile driver did not gather from the facade's upload")
     agree = direction_agreement(ev, lut_true)
     log(f'DTI directions (card): LUT direction of the true one on '
         f'{agree:.6f} of voxels')
@@ -681,6 +696,8 @@ def phase_fw_main_path(study, lut_true, aniso):
     log(f'first fit: {n_vox} voxels in {fit_s:.3f} s = {n_vox / fit_s:.0f} '
         'voxels/s')
     check(launches > 0, 'the FreeWater path never launched the tile QP')
+    check(ev.model._last_fit_timers['staged_shared'] == 1,
+          "the tile driver did not gather from the facade's upload")
     agree_all = direction_agreement(ev, lut_true)
     agree = direction_agreement(ev, lut_true, aniso)
     log(f'DTI directions (card): LUT direction of the true one on '
@@ -717,7 +734,7 @@ def phase_fw_main_path(study, lut_true, aniso):
         f'median {med:.3g} p95 {p95:.3g} max {mx:.3g}')
     check(med < FW_AUDIT_MEDIAN and p95 < FW_AUDIT_P95 and mx < FW_AUDIT_MAX,
           'FreeWater oracle audit outside its bounds')
-    return launches
+    return launches, maps.astype(np.float64)
 
 
 def phase_loc_probe():
@@ -1223,15 +1240,19 @@ def phase_crash_resume(study, tmp, sweep_maps):
     ev.set_config('checkpoint_every', 1)
     run = ev.model._run_tiled_fit
 
-    def crashing(evaluation, fit_chunk_fn, *args):
+    def crashing(evaluation, chunk_fn_for, *args):
         calls = []
 
-        def chunk(*a):
-            calls.append(1)
-            if len(calls) > 2:
-                raise RuntimeError('13c: injected crash')
-            return fit_chunk_fn(*a)
-        return run(evaluation, chunk, *args)
+        def crashing_for(device):
+            fit_chunk = chunk_fn_for(device)
+
+            def chunk(*a):
+                calls.append(1)
+                if len(calls) > 2:
+                    raise RuntimeError('13c: injected crash')
+                return fit_chunk(*a)
+            return chunk
+        return run(evaluation, crashing_for, *args)
     ev.model._run_tiled_fit = crashing
     crashed = None
     try:
@@ -1484,6 +1505,156 @@ def phase_study(study, fw_study, tmp, noddi_maps, lut_true, kernels,
     log(f'13: study path {time.time() - t_phase:.1f} s')
 
 
+def phase_mesh_fit(study, model, maps_ref, launches_ref, counter, what):
+    """14a/b: ``model`` on ``study`` with mesh=make_mesh(): maps and launch
+    count against the single-device run's."""
+    import torch
+    import amico_tpu_torch
+    from amico_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    ev = amico_tpu_torch.Evaluation(study, 'subj', device='cuda')
+    ev.set_config('mesh', mesh)
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    ev.set_model(model)
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    counter.launches = 0
+    t0 = time.time()
+    ev.fit()
+    fit_s = time.time() - t0
+    launches = counter.launches
+    maps = ev.RESULTS['MAPs'][ev.niiMASK_img == 1].astype(np.float64)
+    devices = ev.model._last_fit_devices
+    n_chunks = ev.model._last_fit_timers['n_chunks']
+    log(f'{what}: {model} over {mesh!r}: fit {fit_s:.3f} s, '
+        f'{launches} launches ({launches_ref} on one device), {n_chunks} '
+        f'chunks, first chunks on {[str(d) for d in devices]}; engine '
+        + json.dumps({k: round(v, 4) for k, v in
+                      ev.model._last_fit_timers.items()}))
+    check(launches == launches_ref and launches > 0,
+          f'{what}: {launches} launches under the mesh, {launches_ref} '
+          'without')
+    check(devices == [torch.device('cuda', i) for i in
+                      range(min(mesh.size, n_chunks))],
+          f'{what}: the chunks went to {devices}')
+    check(np.array_equal(maps, maps_ref),
+          f'{what}: the mesh maps differ from the one-device fit')
+    log(f'{what}: maps equal the one-device fit bit for bit')
+    return fit_s
+
+
+def dist_rank(rank, nproc, port, study, out_root):
+    """One rank of 14c: joins the gloo group, fits its slab of phase 4's
+    subject on the card with distributed=True, writes (rank 0 only) under
+    ``out_root``/rank<r>, and prints its numbers as one JSON line."""
+    import torch
+    import amico_tpu_torch
+    from amico_tpu_torch.ops.cuda_qp import noddi_fused_tiles
+    from amico_tpu_torch.parallel import dist
+    t0 = time.time()
+    dist.initialize(f'localhost:{port}', nproc, rank, local_device_ids=[0])
+    check(dist.process_count() == nproc and dist.process_index() == rank,
+          'the process group is not the one asked for')
+    join_s = time.time() - t0
+    ev = amico_tpu_torch.Evaluation(
+        study, 'subj', device='cuda',
+        output_path=os.path.join(out_root, f'rank{rank}'))
+    ev.set_config('distributed', True)
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    ev.set_model('NODDI')
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    noddi_fused_tiles.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ev.fit()
+    fit_s = time.time() - t0
+    launches = noddi_fused_tiles.launches
+    n_vox = int(np.count_nonzero(ev.niiMASK_img == 1))
+    slab = dist.host_slab(n_vox)
+    # the fit's gather again, this rank's rows of the maps and directions
+    # after a barrier: the transfer alone, without the wait for the slower
+    # rank that the fit's gather includes
+    own = [ev.RESULTS['MAPs'][ev.niiMASK_img == 1][slab],
+           np.asarray(ev.DIRs, np.float32)[slab]]
+    dist.barrier('gather alone')
+    t0 = time.time()
+    for rows in own:
+        dist.allgather_rows(rows, n_vox)
+    transfer_s = time.time() - t0
+    t0 = time.time()
+    ev.save_results()
+    save_s = time.time() - t0
+    tf = ev._last_fit_facade_timers
+    log('RANK ' + json.dumps({
+        'rank': rank, 'slab': [slab.start, slab.stop], 'join_s': join_s,
+        'fit_s': fit_s, 'gather_s': tf['gather_s'],
+        'transfer_s': transfer_s, 'model_fit_s': tf['model_fit_s'],
+        'save_s': save_s,
+        'facade': {k: round(v, 4) for k, v in tf.items()},
+        'k1_launches': launches, 'device': str(ev.model._last_fit_devices[0]),
+        'maps_shape': list(ev.RESULTS['MAPs'].shape)}))
+    dist.barrier('chip_smoke')
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dist(study, tmp, n_vox):
+    """14c: two ranks on the card fit phase 4's subject a slab each."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    out_root = os.path.join(tmp, 'dist_out')
+    cmds = [[sys.executable, os.path.abspath(__file__), 'rank', str(r), '2',
+             str(port), study, out_root] for r in range(2)]
+    logs = [os.path.join(tmp, f'rank{r}.log') for r in range(2)]
+    t0 = time.time()
+    tails = run_processes(cmds, logs, timeout=300)
+    wall_s = time.time() - t0
+    ranks = []
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.startswith('RANK ')]
+        check(len(lines) == 1, f'rank {r} printed no result: {tails[r]}')
+        ranks.append(json.loads(lines[0][5:]))
+    for d in ranks:
+        log(f'14c: rank {d["rank"]}: voxels {d["slab"]}, join '
+            f'{d["join_s"]:.3f} s, fit {d["fit_s"]:.3f} s (model fit '
+            f'{d["model_fit_s"]:.3f}, gather {d["gather_s"]:.4f}; the '
+            f'same gather after a barrier {d["transfer_s"]:.4f}), '
+            f'save_results {d["save_s"]:.3f} s, K1 launches '
+            f'{d["k1_launches"]} on {d["device"]}; fit breakdown (s) '
+            + json.dumps(d['facade']))
+    log(f'14c: two ranks side by side {wall_s:.2f} s, process start '
+        'included')
+    check([d['slab'] for d in ranks] == [[0, (n_vox + 1) // 2],
+                                         [(n_vox + 1) // 2, n_vox]],
+          'the ranks did not split the voxels in two slabs')
+    check(all(d['k1_launches'] > 0 for d in ranks),
+          'a rank never launched K1')
+    check(not os.path.exists(os.path.join(out_root, 'rank1')),
+          'rank 1 wrote results')
+    maps_equal_or_within_k1(
+        load_maps(os.path.join(out_root, 'rank0')),
+        load_maps(os.path.join(study, 'subj', 'AMICO', 'NODDI')),
+        '14c: two ranks against phase 4')
+
+
+def phase_mesh_dist(noddi_study, fw_study, tmp, noddi_maps, fw_maps,
+                    k1_launches, k2_launches):
+    """Phase 14, mesh and multi-process execution."""
+    from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
+    t_phase = time.time()
+    phase_mesh_fit(noddi_study, 'NODDI', noddi_maps, k1_launches,
+                   noddi_fused_tiles, '14a')
+    phase_mesh_fit(fw_study, 'FreeWater', fw_maps, k2_launches,
+                   nneg_qp_tiles, '14b')
+    phase_dist(noddi_study, tmp, noddi_maps.shape[0])
+    log(f'14: mesh and multi-process {time.time() - t_phase:.1f} s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1534,7 +1705,7 @@ def main():
         write_demo_subject(os.path.join(study, 'subj'), scheme, y, VOL_DIM)
         del y, W
         log(f'FreeWater subject written: {time.time() - t0:.1f} s')
-        qp_launches = phase_fw_main_path(study, lut_true, aniso)
+        qp_launches, fw_maps = phase_fw_main_path(study, lut_true, aniso)
         fw_study = study
         t1_launches, t1_err, (t1_ms, t1_plain_ms, t1_lib_ms, t1_bound_ms,
                               t1_bound_by) = phase_loc_probe()
@@ -1568,6 +1739,8 @@ def main():
         phase_sandi(study)
         phase_study(noddi_study, fw_study, tmp, noddi_maps, noddi_lut_true,
                     kernels, htable, scheme)
+        phase_mesh_dist(noddi_study, fw_study, tmp, noddi_maps, fw_maps,
+                        launches, qp_launches)
     from amico_tpu_torch.ops import native
     check(native.available(), "the port's native host library did not load")
     loaded = sorted(m for m in sys.modules
@@ -1602,4 +1775,7 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['rank']:
+        sys.exit(dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -491,6 +491,69 @@ def test_fit_chunks_on_two_streams_match_one(freewater, monkeypatch):
     assert np.array_equal(two['estimates'], one['estimates'])
 
 
+def test_second_stream_waits_for_the_constants(freewater, monkeypatch):
+    """The model's constants are queued on the current stream; the chunks
+    sent to the second stream read them only once they are done.  Here the
+    constants are poisoned and written back after a long sleep of the
+    current stream: the two-stream maps still equal the one-stream ones."""
+    from amico_tpu_torch.models import base
+    from amico_tpu_torch.testing import freewater_voxels
+    model, kernels, htable = freewater['Human']
+    y, DIRs, _, _ = freewater_voxels(6000, kernels, htable, seed=4)
+    prepare = model.prepare
+
+    def late(*args):
+        c = prepare(*args)
+        kept = {k: v.clone() for k, v in c.items()}
+        for v in c.values():
+            v.fill_(float('nan'))
+        torch.cuda._sleep(1 << 30)          # about half a second
+        for k, v in c.items():
+            v.copy_(kept[k])
+        return c
+
+    class Ctx:
+        def __init__(s):
+            s.y, s.DIRs, s.htable, s.KERNELS = y, DIRs, htable, kernels
+
+        def get_config(s, k):
+            return {'device': 'cuda', 'voxels_per_chunk': 1024}.get(k)
+
+    monkeypatch.setattr(model, 'prepare', late)
+    two = model.fit(Ctx())
+    assert model._last_fit_timers['n_chunks'] >= 2
+    monkeypatch.setattr(base, '_chunk_streams', lambda device: [None])
+    one = model.fit(Ctx())
+    assert np.isfinite(one['estimates']).all()
+    assert np.array_equal(two['estimates'], one['estimates'])
+
+
+def test_mesh_fit_matches_one_card(freewater):
+    """make_mesh() over the visible cards: whole chunks go to the cards
+    round robin, and the maps equal the one-card fit's bit for bit."""
+    from amico_tpu_torch.parallel import make_mesh
+    from amico_tpu_torch.testing import freewater_voxels
+    model, kernels, htable = freewater['Human']
+    y, DIRs, _, _ = freewater_voxels(6000, kernels, htable, seed=4)
+    mesh = make_mesh()
+
+    class Ctx:
+        def __init__(s, mesh=None):
+            s.y, s.DIRs, s.htable, s.KERNELS = y, DIRs, htable, kernels
+            s.cfg = {'device': 'cuda', 'voxels_per_chunk': 1024,
+                     'mesh': mesh}
+
+        def get_config(s, k):
+            return s.cfg.get(k)
+
+    one = model.fit(Ctx())
+    n_chunks = model._last_fit_timers['n_chunks']
+    got = model.fit(Ctx(mesh))
+    assert model._last_fit_devices == [
+        torch.device('cuda', i) for i in range(min(mesh.size, n_chunks))]
+    assert np.array_equal(got['estimates'], one['estimates'])
+
+
 # --------------------------------------------------- T1: build-cache probe
 @pytest.mark.parametrize('shape', [(8, 128), (1,), (1_000_003,), (3, 5, 7)])
 def test_loc_probe_matches_twin_bit_for_bit(cuda, shape):

@@ -218,22 +218,32 @@ def test_top_level_api_matches_the_jax_packages():
                 assert hasattr(getattr(amico_tpu, name), attr)
 
 
-@pytest.mark.parametrize('key,value', [('distributed', True),
-                                       ('mesh', 'a device mesh')])
-def test_unported_config_raises(study, tmp_path, key, value):
-    """The multi-host and device-mesh fits stay ROADMAP work and raise."""
-    os.environ['AMICO_TPU_HOME'] = str(tmp_path / 'home')
-    import amico_tpu_torch
-    ev = amico_tpu_torch.Evaluation(study, 'subj', device='cpu')
-    ev.set_config(key, value)
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, entry 10'):
-        ev.load_data(dwi_filename='DWI.nii.gz', scheme_filename='DWI.scheme')
-        ev.set_model('NODDI')
-        ev.model.set(IC_VFs=np.linspace(0.3, 0.99, 4),
-                     IC_ODs=np.array([0.06, 0.3, 0.8]))
-        ev.generate_kernels(ndirs=500)
-        ev.load_kernels()
-        ev.fit()
+@pytest.mark.parametrize('key', ['distributed', 'mesh'])
+def test_mesh_and_distributed_configs(study, tmp_path, key):
+    """``distributed=True`` in a one-process gloo group, and a 4-entry CPU
+    mesh: the facade's maps equal the plain facade's bit for bit (so they
+    hold the golden's bounds too), and config.pickle keeps its key set.
+    tests/test_torch_dist.py runs two processes."""
+    import torch.distributed as tdist
+    from amico_tpu_torch.parallel import dist, make_mesh
+    from tests.test_torch_dist import free_port
+    home = str(tmp_path / 'home')
+    plain, _ = run_port_facade(study, home)
+    if key == 'mesh':
+        maps, keys = run_port_facade(study, home,
+                                     {'mesh': make_mesh(4, device='cpu')})
+    else:
+        tdist.init_process_group('gloo', world_size=1, rank=0,
+                                 init_method=f'tcp://localhost:{free_port()}')
+        try:
+            assert dist.process_count() == 1 and dist.is_coordinator()
+            dist.initialize()          # a group exists: a no-op
+            maps, keys = run_port_facade(study, home, {'distributed': True})
+        finally:
+            tdist.destroy_process_group()
+    check_against_golden(maps, keys)
+    for name in FACADE_MAPS:
+        np.testing.assert_array_equal(maps[name], plain[name], err_msg=name)
 
 
 def test_profile_dir_config(study, tmp_path):

@@ -166,15 +166,19 @@ def test_crash_then_resume(ck_setup, budget):
     model, ctx, ck, ref, plan, y = ck_setup
     run = model._run_tiled_fit
 
-    def crashing(evaluation, fit_chunk_fn, *args):
+    def crashing(evaluation, chunk_fn_for, *args):
         calls = []
 
-        def chunk(*a):
-            calls.append(1)
-            if len(calls) > 2:
-                raise RuntimeError('injected crash')
-            return fit_chunk_fn(*a)
-        return run(evaluation, chunk, *args)
+        def crashing_for(device):
+            fit_chunk = chunk_fn_for(device)
+
+            def chunk(*a):
+                calls.append(1)
+                if len(calls) > 2:
+                    raise RuntimeError('injected crash')
+                return fit_chunk(*a)
+            return chunk
+        return run(evaluation, crashing_for, *args)
 
     c = ctx(fit_checkpoint=ck, checkpoint_every=1, max_device_bytes=budget)
     model._run_tiled_fit = crashing
@@ -214,6 +218,9 @@ def test_facade_staging_rule(study, tmp_path):
         staged = ev._staged_y_ext_dev
         assert (staged is None) == (budget is not None)
         assert ev.model._last_fit_timers['streamed'] == int(budget is not None)
+        # the driver gathers from the facade's upload, not a second one
+        assert ev.model._last_fit_timers['staged_shared'] == int(
+            budget is None)
         tf = ev._last_fit_facade_timers
         parts = sum(v for k, v in tf.items()
                     if k not in ('total_s', 'unattributed_s'))
@@ -222,3 +229,14 @@ def test_facade_staging_rule(study, tmp_path):
         out.append((ev.RESULTS['MAPs'].copy(), ev.RESULTS['DIRs'].copy()))
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
+
+
+def test_driver_names_the_current_card(monkeypatch):
+    """The driver compares devices by their index: 'cuda' is the current
+    card, so the facade's staged signal (on cuda:N) is found on it and not
+    uploaded a second time."""
+    from amico_tpu_torch.models.base import _concrete
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 3)
+    assert _concrete('cuda') == torch.device('cuda', 3)
+    assert _concrete(torch.device('cuda', 1)) == torch.device('cuda', 1)
+    assert _concrete('cpu') == torch.device('cpu')

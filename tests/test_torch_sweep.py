@@ -2,7 +2,8 @@
 tests/test_sweep.py (two subjects and a resume, a bad subject, the warm
 state, the prefetch pipeline), its maps against the JAX package's
 SubjectSweep on the same study, a crash mid-fit resumed from the sweep's
-checkpoint, and the multi-host and mesh branches, which raise."""
+checkpoint, and a sweep over a device mesh and with ``distributed`` in one
+process (tests/test_torch_dist.py runs two)."""
 import os
 
 import numpy as np
@@ -143,13 +144,17 @@ def test_sweep_crash_resumes_from_its_checkpoint(tmp_path, monkeypatch):
     run = BaseModel._run_tiled_fit
     calls = []
 
-    def crashing(self, evaluation, fit_chunk_fn, *args):
-        def chunk(*a):
-            calls.append(1)
-            if len(calls) > 2:
-                raise RuntimeError('injected crash')
-            return fit_chunk_fn(*a)
-        return run(self, evaluation, chunk, *args)
+    def crashing(self, evaluation, chunk_fn_for, *args):
+        def crashing_for(device):
+            fit_chunk = chunk_fn_for(device)
+
+            def chunk(*a):
+                calls.append(1)
+                if len(calls) > 2:
+                    raise RuntimeError('injected crash')
+                return fit_chunk(*a)
+            return chunk
+        return run(self, evaluation, crashing_for, *args)
 
     ck = tmp_path / 'c1' / '.amico_tpu_ckpt_FreeWater.npz'
     monkeypatch.setattr(BaseModel, '_run_tiled_fit', crashing)
@@ -167,11 +172,34 @@ def test_sweep_crash_resumes_from_its_checkpoint(tmp_path, monkeypatch):
                                   fw_map(ref.results['c1']))
 
 
-@pytest.mark.parametrize('kw', [{'mesh': 'a mesh'},
-                                {'config': dict(CPU, mesh='a mesh')},
-                                {'config': dict(CPU, distributed=True)}])
-def test_sweep_mesh_and_distributed_raise(study, kw):
+@pytest.mark.parametrize('kw', ['mesh', 'config_mesh', 'distributed'])
+def test_sweep_mesh_and_distributed(study, tmp_path, kw):
+    """A sweep with ``mesh=`` (a 2-entry CPU mesh), with ``config={'mesh':
+    ...}`` and with ``distributed=True`` in one process: the maps equal a
+    plain sweep's bit for bit, and config.pickle records the live mesh by
+    its repr (tests/test_sweep.py:177's case)."""
+    import pickle
+    from amico_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(2, device='cpu')
+    out = str(tmp_path / 'out')
+    kws = {'mesh': {'mesh': mesh, 'config': dict(CPU, OUTPUT_path=out)},
+           'config_mesh': {'config': dict(CPU, mesh=mesh, OUTPUT_path=out)},
+           'distributed': {'config': dict(CPU, distributed=True,
+                                          OUTPUT_path=out)}}[kw]
+    ref = SubjectSweep(str(study), ['s1'], 'FreeWater',
+                       dwi_filename='DWI.nii.gz',
+                       config=dict(CPU, OUTPUT_path=str(tmp_path / 'ref')))
+    ref.run(resume=False)
     sweep = SubjectSweep(str(study), ['s1'], 'FreeWater',
-                         dwi_filename='DWI.nii.gz', **kw)
-    with pytest.raises(NotImplementedError, match='entry 10'):
-        sweep.run(resume=False)
+                         dwi_filename='DWI.nii.gz', **kws)
+    res = sweep.run(resume=False)
+    assert res['s1'] == os.path.join(out, 's1')
+    np.testing.assert_array_equal(fw_map(res['s1']),
+                                  fw_map(ref.results['s1']))
+    with open(os.path.join(res['s1'], 'config.pickle'), 'rb') as fid:
+        cfg = pickle.load(fid)
+    if kw == 'distributed':
+        assert cfg['distributed'] is True and cfg['mesh'] is None
+    else:
+        assert isinstance(cfg['mesh'], str) and cfg['mesh'] == repr(mesh)
+        assert cfg['mesh'].startswith('Mesh(')
