@@ -12,15 +12,18 @@ resampling, scatter, map writing) are the port's copies of the JAX
 package's jax-free modules.
 The fit uploads the padded float32 signal once to the ``device`` config's
 device when it fits in ``max_device_bytes`` (the JAX facade's staging
-rule); the DTI direction fit and the model's tile driver share that upload.
-Beyond the budget the DTI fit takes the host array and the tile driver
-streams host-tiled chunks.  The Rician debias runs on the same device
-inside ``load_data``; ``profile_dir`` records the model fit with
-``torch.profiler``.  The ``mesh`` config (``parallel.make_mesh``) spreads
-the tile driver's chunks over the cards of one process; ``distributed``
-(after ``parallel.dist.initialize``) gives each process a slab of the
-voxels on its own card, gathers the maps on every process and lets process
-0 alone write them, as the JAX facade does.
+rule); the DTI direction fit and the model's tile driver share that
+upload.  Beyond the budget the DTI fit takes the host array and the tile
+driver streams host-tiled chunks.  As in the JAX facade, a re-fit of the
+same loaded data reuses the masked signal, its upload and the DTI
+directions.  The Rician debias runs on the same device inside
+``load_data``; ``profile_dir`` records the model fit with
+``torch.profiler``.  The ``mesh`` config
+(``parallel.make_mesh``) spreads the tile driver's chunks over the cards
+of one process; ``distributed`` (after ``parallel.dist.initialize``) gives
+each process a slab of the voxels on its own card, gathers the maps on
+every process and lets process 0 alone write them, as the JAX facade
+does.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from .utils.timers import StageTimers
 from . import models as _models
 from . import pipeline as _pl
 from .device import DEFAULT_DEVICE, resolve_device
-from .models.base import DEFAULT_MAX_DEVICE_BYTES
+from .models.base import DEFAULT_MAX_DEVICE_BYTES, _concrete
 from .parallel import dist
 
 try:
@@ -64,6 +67,15 @@ def _profiler(prof_dir: str, device: torch.device):
         acts.append(ProfilerActivity.CUDA)
     return profile(activities=acts,
                    on_trace_ready=tensorboard_trace_handler(prof_dir))
+
+
+def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The padded float32 signal on ``device`` (on the CPU, the host buffer
+    itself)."""
+    t = torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(device)
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    return t
 
 
 def setup(lmax: int = 12) -> None:
@@ -512,13 +524,14 @@ class Evaluation:
                   'and "load_kernels()" first')
         if self.KERNELS['model'] != self.model.id:
             ERROR('Response functions were not created with the same model')
-        device = resolve_device(self.get_config('device'))
+        device = _concrete(resolve_device(self.get_config('device')))
         method = _pl.resolve_dti_method(self.get_config('DTI_fit_method'))
         self.nthreads = self._resolve_threads('nthreads')
         self.BLAS_nthreads = self._resolve_threads('BLAS_nthreads')
         self.set_config('fit_time', None)
         mask = self.niiMASK_img
-        n_vox = int(np.count_nonzero(mask == 1))
+        mask_sel = np.ascontiguousarray(mask == 1)
+        n_vox = int(mask_sel.sum())
         dist_on = self._distributed()
         # the JAX facade's staging rule: the signal is staged on the device
         # only for a single-process, single-device, direction-full fit
@@ -535,34 +548,60 @@ class Evaluation:
         t_enter = t = time.time()
         self._staged_y_ext_dev = None
         with self.timers.stage('stage_voxels'):
-            # fused native extraction (gather + clip + zero pad row); the
-            # padded buffer is the device staging layout
-            from .ops import native as _native
-            padded = _native.masked_gather_padded(self.niiDWI_img, mask)
-            if padded is None:
-                self.y = _pl.masked_voxels(self.niiDWI_img, mask)
-                padded = np.concatenate(
-                    [self.y.astype(np.float32, copy=False),
-                     np.zeros((1, self.y.shape[1]), np.float32)])
+            # warm re-fit state, the JAX facade's: a re-fit of the same
+            # loaded volume and mask (identity) reuses the masked signal,
+            # so that the model's identity-keyed caches hit.  A strided
+            # sum of the volume (ravel(order='K') takes no copy), the voxel
+            # count and an exact digest of the mask make an in-place edit
+            # of either miss
+            stride = max(1, self.niiDWI_img.size // 65536)
+            img_fp = (float(np.sum(self.niiDWI_img.ravel(order='K')[::stride],
+                                   dtype=np.float64)),
+                      n_vox, hash(mask_sel.tobytes()))
+            yc = getattr(self, '_fit_y_cache', None)
+            if yc is not None and yc[0] is self.niiDWI_img \
+                    and yc[1] is self.niiMASK_img and yc[2] == img_fp:
+                self.y, slab_cache = yc[3], yc[4]
             else:
-                self.y = padded[:-1]
+                # a new signal: the old one's cached copies on the card, the
+                # facade's and the model's staged inputs, go before anything
+                # new is gathered or uploaded
+                yc = self._fit_y_cache = self._fit_dirs_cache = None
+                self.model._stage_cache = None
+                slab_cache = {}
+                self.y = self._gather_signal(mask, slab_cache)
+                self._fit_y_cache = (self.niiDWI_img, self.niiMASK_img,
+                                     img_fp, self.y, slab_cache)
             # multi-process: this process fits its slab of the voxels
-            # alone; the maps are gathered after the fit
+            # alone; the maps are gathered after the fit.  The slab view is
+            # kept too, so that a re-fit hands the model the same object
             y_full = self.y
             if dist_on:
                 slab = dist.host_slab(n_vox)
-                self.y = y_full[slab]
+                sl = slab_cache.get((slab.start, slab.stop))
+                if sl is None:
+                    sl = slab_cache[(slab.start, slab.stop)] = y_full[slab]
+                self.y = sl
                 LOG(f'\n-> Distributed fit: process {dist.process_index()}/'
                     f'{dist.process_count()} takes voxels '
                     f'[{slab.start}:{slab.stop}) of {n_vox}')
             if want_stage:
-                # one float32 upload, shared by the DTI fit and the tile
-                # driver
-                y_ext_dev = torch.from_numpy(
-                    np.ascontiguousarray(padded, np.float32)).to(device)
-                if device.type == 'cuda':
-                    torch.cuda.synchronize(device)
-                self._staged_y_ext_dev = (self.y, y_ext_dev)
+                # one float32 upload a device, shared by the DTI fit and the
+                # tile driver, kept across fits
+                copies = slab_cache.setdefault('__y_ext_dev__', {})
+                if device not in copies:
+                    host = slab_cache.get('__y_ext_host__')
+                    if host is None:
+                        host = np.concatenate(
+                            [self.y.astype(np.float32, copy=False),
+                             np.zeros((1, self.y.shape[1]), np.float32)])
+                    copies[device] = _upload(host, device)
+                self._staged_y_ext_dev = (self.y, copies[device])
+            else:
+                # unlike the JAX facade, a fit that does not stage keeps no
+                # copy of the signal on a device: the budget bounds what
+                # the fit holds there
+                slab_cache.pop('__y_ext_dev__', None)
         tf['stage_voxels_s'] = time.time() - t_enter
 
         LOG(f"\n-> Estimating principal directions "
@@ -573,12 +612,22 @@ class Evaluation:
             if dist_on:
                 self.DIRs = self.DIRs[slab]
         elif not self.get_config('doDirectionalAverage'):
-            y_dti = (self._staged_y_ext_dev[1][:-1]
-                     if self._staged_y_ext_dev is not None else self.y)
-            with self.timers.stage('directions'), torch.no_grad():
-                self.DIRs = _pl.principal_directions(
-                    y_dti, self.scheme, method,
-                    bool(self.get_config('doMergeB0')), device=device)
+            # the directions depend on (y, scheme, method, doMergeB0) and
+            # the device they are fitted on: a re-fit reuses them (and the
+            # tile driver's plan, keyed on their identity)
+            dkey = (self.y, self.scheme, method,
+                    bool(self.get_config('doMergeB0')), device)
+            dc = getattr(self, '_fit_dirs_cache', None)
+            if dc is not None and dc[0] is dkey[0] and dc[1] is dkey[1] \
+                    and dc[2:5] == dkey[2:]:
+                self.DIRs = dc[5]
+            else:
+                y_dti = (self._staged_y_ext_dev[1][:-1]
+                         if self._staged_y_ext_dev is not None else self.y)
+                with self.timers.stage('directions'), torch.no_grad():
+                    self.DIRs = _pl.principal_directions(
+                        y_dti, self.scheme, method, dkey[3], device=device)
+                self._fit_dirs_cache = dkey + (self.DIRs,)
         self.set_config('dirs_precomputing_time', time.time() - t)
         tf['directions_s'] = time.time() - t_enter - tf['stage_voxels_s']
         LOG('   [ %s ]' % time.strftime(
@@ -616,6 +665,18 @@ class Evaluation:
             v for k, v in tf.items() if k.endswith('_s')
             and k not in ('total_s', 'unattributed_s'))
         self._last_fit_facade_timers = tf
+
+    def _gather_signal(self, mask, slab_cache):
+        """The masked voxels (N, nS) of the loaded volume: the fused native
+        gather (clip and zero pad row; the padded buffer is the device
+        staging layout, kept as ``'__y_ext_host__'``), else the NumPy
+        path."""
+        from .ops import native as _native
+        padded = _native.masked_gather_padded(self.niiDWI_img, mask)
+        if padded is None:
+            return _pl.masked_voxels(self.niiDWI_img, mask)
+        slab_cache['__y_ext_host__'] = padded
+        return padded[:-1]
 
     def _load_peaks(self, peaks_filename, mask):
         """Alternative direction source: a precomputed peaks NIfTI."""
@@ -722,10 +783,14 @@ class Evaluation:
             emit(self.RESULTS['MAPs'][:, :, :, i], f'fit_{name}.nii.gz',
                  descrip=self.model.maps_descr[i] + tag)
         if self.get_config('doSaveModulatedMaps'):
-            for i in range(2):
-                emit(self.RESULTS['MAPs_mod'][:, :, :, i],
-                     f'fit_{self.model.maps_name[i]}_modulated.nii.gz',
-                     descrip=self.model.maps_descr[i] + ' modulated' + tag)
+            if self.model.name == 'NODDI':
+                for i in range(2):
+                    emit(self.RESULTS['MAPs_mod'][:, :, :, i],
+                         f'fit_{self.model.maps_name[i]}_modulated.nii.gz',
+                         descrip=self.model.maps_descr[i] + ' modulated' + tag)
+            else:
+                WARNING(f'"doSaveModulatedMaps" is only meaningful for NODDI, '
+                        f'not "{self.model.name}"')
         if save_dir_avg:
             if self.get_config('doDirectionalAverage'):
                 emit(self.niiDWI_img, 'dir_avg_signal.nii.gz',

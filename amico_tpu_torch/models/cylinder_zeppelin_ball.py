@@ -170,7 +170,9 @@ class CylinderZeppelinBall(BaseModel):
 
         def chunk_fn_for(device):
             """The chunk function with the fit's constants on ``device``."""
-            c = self.prepare(evaluation.KERNELS, device)
+            kernels = evaluation.KERNELS
+            c = self._constants((kernels['wmr'],), device,
+                                lambda: self.prepare(kernels, device))
             Rs = torch.as_tensor(self.Rs, dtype=torch.float32, device=device)
 
             def fit_chunk(Y, dirs, valid):

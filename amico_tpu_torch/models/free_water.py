@@ -157,7 +157,8 @@ class FreeWater(BaseModel):
 
         def chunk_fn_for(device):
             """The chunk function with the fit's constants on ``device``."""
-            c = self.prepare(kernels, device)
+            c = self._constants((kernels['D'],), device,
+                                lambda: self.prepare(kernels, device))
 
             def fit_chunk(Y, dirs, valid):
                 A = c['A_all'][dirs]                       # (C, nS, n)

@@ -322,7 +322,9 @@ class NODDI(BaseModel):
 
         def chunk_fn_for(device):
             """The chunk function with the fit's constants on ``device``."""
-            c = self.prepare(kernels, device, merged_b0)
+            c = self._constants(
+                (kernels['wm'], is_exvivo, merged_b0), device,
+                lambda: self.prepare(kernels, device, merged_b0))
             rows = c['rows_dwi']
             na = c['A_all'].shape[-1]
             nb_m = nb_p = None

@@ -34,7 +34,7 @@ from ..utils.logging import ERROR, WARNING, get_verbose
 from ..utils.progress import ProgressBar
 from ._fitops import error_maps
 from .base import (DEFAULT_CD_SWEEPS, DEFAULT_CG_ITERS, DEFAULT_FISTA_ITERS,
-                   DEFAULT_REFINE_ROUNDS, BaseModel)
+                   DEFAULT_REFINE_ROUNDS, BaseModel, _concrete)
 
 
 def sandi_estimates(xu: torch.Tensor, Rs: torch.Tensor, d_in: torch.Tensor,
@@ -154,21 +154,14 @@ class SANDI(BaseModel):
         return KERNELS
 
     def prepare(self, kernels: dict, device) -> tuple:
-        """(A (nS, n), G, L, norms) on ``device``, float32, built once per
-        KERNELS['signal'] array and device."""
+        """(A (nS, n), G, L, norms) on ``device``, float32."""
         device = torch.device(device)
-        cached = getattr(self, '_prep_cache', None)
-        if cached is not None and cached[0][0] is kernels['signal'] \
-                and cached[0][1] == device:
-            return cached[1]
         A = torch.as_tensor(kernels['signal'], dtype=torch.float32,
                             device=device)
         G = gram(A)
-        consts = (A, G, power_iteration_L(G),
-                  torch.as_tensor(kernels['norms'], dtype=torch.float32,
-                                  device=device))
-        self._prep_cache = ((kernels['signal'], device), consts)
-        return consts
+        return (A, G, power_iteration_L(G),
+                torch.as_tensor(kernels['norms'], dtype=torch.float32,
+                                device=device))
 
     def fit(self, evaluation):
         """Direction-free fit over one shared dictionary, in chunks that are
@@ -182,7 +175,10 @@ class SANDI(BaseModel):
                     "tile kernel has nothing to gain); 'backend' ignored")
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
-        A, G, Lc, norms = self.prepare(evaluation.KERNELS, device)
+        kernels = evaluation.KERNELS
+        A, G, Lc, norms = self._constants(
+            (kernels['signal'],), _concrete(device),
+            lambda: self.prepare(kernels, device))
         f32 = dict(dtype=torch.float32, device=device)
         Rs = torch.as_tensor(self.Rs, **f32)
         d_in = torch.as_tensor(self.d_in, **f32)

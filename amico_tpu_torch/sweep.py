@@ -155,6 +155,10 @@ class SubjectSweep:
                 for fut in pending.values():
                     fut.cancel()
                 ex.shutdown(wait=True)
+            # the kept model outlives the sweep: its staged inputs are the
+            # last subject's signal on the card, of no use to another one
+            if self._warm is not None:
+                self._warm[1][0]._stage_cache = None
         return self.results
 
     def _run_subjects(self, resume, checkpoint, ex, pending, start_prefetch):

@@ -1,21 +1,22 @@
-"""Warm fits of two checkouts of the port, in turns, on one card.
+"""First and warm fits of two checkouts of the port, in turns, on one card.
 
     python -m amico_tpu_torch.tools.fit_turns TREE_A TREE_B [--reps N]
-        [--model NODDI|FreeWater|CylinderZeppelinBall] [--backend B]
+        [--model NODDI|FreeWater|CylinderZeppelinBall|SANDI] [--backend B]
         [--out FILE]
 
 Writes ``chip_smoke.py``'s subject of the model once (409,600 voxels,
 seed 7: NODDI and FreeWater Human on bench.py's reference-scale protocol,
-CylinderZeppelinBall on the JAX bench's STEJSKALTANNER one), then runs,
-for each checkout in the order A B B A (``--reps`` times over), a fresh
-process with that checkout first on ``sys.path``:
-``Evaluation(device='cuda')``, ``load_data`` -> ``set_model`` (and
-``set_solver(backend=B)`` when given) -> ``generate_kernels(ndirs=500)``
--> ``load_kernels``, then three fits.  Each run prints the fits' wall
-times, the tile engine's timers and a digest of the maps as one JSON
-line; the first fit pays the process's one-time CUDA set-up, the other two
-are warm.  The summary gives each checkout's warm fit and device wait and
-whether every fit of both wrote the same maps, bit for bit.
+CylinderZeppelinBall and SANDI on the JAX bench's STEJSKALTANNER one,
+SANDI's direction-averaged by ``load_data``), then runs, for each checkout
+in the order A B B A (``--reps`` times over), a fresh process with that
+checkout first on ``sys.path``: ``Evaluation(device='cuda')``,
+``load_data`` -> ``set_model`` (and ``set_solver(backend=B)`` when given)
+-> ``generate_kernels(ndirs=500)`` -> ``load_kernels``, then three fits.
+Each run prints the fits' wall times, the facade's and the tile engine's
+timers and a digest of the maps as one JSON line; the first fit pays the
+process's one-time CUDA set-up, the other two are warm.  The summary gives
+each checkout's first fit, its stage_voxels_s, its warm fit and device
+wait, and whether every fit of both wrote the same maps, bit for bit.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import numpy as np
 import amico_tpu_torch
 amico_tpu_torch.set_verbose(1)
 ev = amico_tpu_torch.Evaluation({study!r}, 'subj', device='cuda')
+ev.set_config('doDirectionalAverage', {model!r} == 'SANDI')
 ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
 ev.set_model({model!r})
 if {backend!r}:
@@ -47,6 +49,7 @@ for _ in range(3):
     ev.fit()
     maps = np.ascontiguousarray(ev.RESULTS['MAPs'])
     fits.append(dict(ev.model._last_fit_timers, fit_s=time.time() - t0,
+                     facade=ev._last_fit_facade_timers,
                      maps=hashlib.sha256(maps.tobytes()).hexdigest()))
 print('RESULT ' + json.dumps({{'tree': {tree!r}, 'fits': fits}}))
 '''
@@ -67,6 +70,11 @@ def write_subject(model, tmp):
     elif model == 'FreeWater':
         _, kernels, htable = demo_freewater(scheme, 'Human', kdir)
         y = freewater_voxels(409_600, kernels, htable, seed=7)[0]
+    elif model == 'SANDI':
+        from amico_tpu_torch.testing import demo_sandi, sandi_voxels
+        scheme = czb_scheme()
+        _, kernels, _ = demo_sandi(scheme, kdir)
+        y = sandi_voxels(409_600, kernels, seed=7)[0]
     else:
         scheme = czb_scheme()
         _, kernels, htable = demo_czb(scheme, kdir)
@@ -81,7 +89,8 @@ def main(argv=None):
     ap.add_argument('trees', nargs=2)
     ap.add_argument('--reps', type=int, default=2)
     ap.add_argument('--model', default='NODDI',
-                    choices=('NODDI', 'FreeWater', 'CylinderZeppelinBall'))
+                    choices=('NODDI', 'FreeWater', 'CylinderZeppelinBall',
+                             'SANDI'))
     ap.add_argument('--backend', default='')
     ap.add_argument('--out')
     a = ap.parse_args(argv)
@@ -114,6 +123,12 @@ def main(argv=None):
                 runs.append(run)
                 print(json.dumps(run), flush=True)
     for tree in trees:
+        first = [r['fits'][0]['fit_s'] for r in runs if r['tree'] == tree]
+        stage = [r['fits'][0]['facade']['stage_voxels_s'] for r in runs
+                 if r['tree'] == tree]
+        print(f'{tree}: first fit median {np.median(first):.3f} s '
+              f'(readings {[round(w, 3) for w in first]}); its '
+              f'stage_voxels_s {[round(w, 4) for w in stage]}', flush=True)
         warm = [f['fit_s'] for r in runs if r['tree'] == tree
                 for f in r['fits'][1:]]
         dev = [f['device_s'] for r in runs if r['tree'] == tree

@@ -17,7 +17,11 @@ Phases; any failure exits non-zero and prints no result line:
    set_model('NODDI') -> generate_kernels(ndirs=500) -> load_kernels ->
    fit -> save_results, with the kernel's launch count, the DTI directions
    against the true ones, map sanity and an exact-oracle audit of 1,000
-   sampled voxels;
+   sampled voxels; then the warm re-fit (``warm_refit``: the second fit
+   calls none of the masked gather, the signal's upload, the DTI fit, the
+   LUT quantization, ``build_tile_plan`` or the model's ``prepare``,
+   reuses every cached object, launches the kernel as often as the first
+   and gives its maps bit for bit);
 5. tile QP vs twin: the tile QP kernel against its plain PyTorch twin,
    both on the card, in the main path's launches of 512 tiles x 128
    voxels: FreeWater Human and Mouse (3,200 tiles each, the default
@@ -32,8 +36,9 @@ Phases; any failure exits non-zero and prints no result line:
 6. FreeWater main path: a 409,600-voxel FreeWater subject (same volume
    and protocol) through Evaluation(device='cuda') with
    doSaveCorrectedDWI, load_data -> save_results, with the tile QP's
-   launch count, the DTI directions, map sanity, the written files and an
-   exact-oracle audit of 1,000 sampled voxels;
+   launch count, the DTI directions, map sanity, the written files, the
+   warm re-fit as in phase 4 and an exact-oracle audit of 1,000 sampled
+   voxels;
 7. build-cache probe (T1): ``amico_tpu_torch.tools.loc_experiment``'s
    candidates (the build key from two call sites and from a second process
    in another working directory, which must reuse the build), then T1
@@ -48,7 +53,8 @@ Phases; any failure exits non-zero and prints no result line:
    files, the DTI directions, an exact-oracle audit of 1,000 voxels, first
    and second fit;
 9. the same subject with backend='pallas' (K2 at n = 26): its launch
-   count, its maps against the stagewise run's, and K2, its twin and the
+   count, its maps against the stagewise run's, the warm re-fit as in
+   phase 4, and K2, its twin and the
    stagewise solver on 512 CZB tiles (agreement by maps and objective,
    times, the `converge` tail);
 10. NODDI with backend='xla' (the stagewise solve) on phase 4's subject:
@@ -64,8 +70,9 @@ Phases; any failure exits non-zero and prints no result line:
    (phase 8's scheme, direction-averaged to b0 + 2 shells by load_data
    with doDirectionalAverage) through Evaluation(device='cuda'),
    load_data -> save_results(save_dir_avg=True) on the stagewise solver:
-   first and second fit, CUDA kernels a chunk (torch.profiler), the
-   written files, an exact-oracle audit of 1,000 voxels;
+   first fit and the warm re-fit as in phase 4 (no K1 or K2 launch in
+   either), CUDA kernels a chunk (torch.profiler), the written files, an
+   exact-oracle audit of 1,000 voxels;
 13. the study path, on phase 4's subject (NODDI on K1) unless said:
    a. ``python -m amico_tpu_torch fit`` in a subprocess into another
       output path: its maps against phase 4's, bit for bit (else within
@@ -80,7 +87,9 @@ Phases; any failure exits non-zero and prints no result line:
       the checkpoint;
    d. NODDI, and FreeWater on phase 6's subject, staged and streamed beyond
       a 64 MiB ``max_device_bytes``: equal maps, times and peak device
-      memory;
+      memory; the streamed fit after the staged one on one Evaluation keeps
+      no copy of the signal on the card and peaks no higher than a streamed
+      fit on a fresh Evaluation;
    e. the DTI methods (OLS, WLS, NLLS, RESTORE) on the staged signal: the
       LUT direction of the true one, their times, and the card against the
       port's CPU run on 4,096 voxels;
@@ -442,6 +451,97 @@ def phase_k1a(args, kernels):
     return rows
 
 
+def cold_work_counts(model_cls):
+    """Call counters on a cold fit's work: the masked gather, the signal's
+    upload to the card, the DTI fit, the LUT quantization, the tile plan
+    and the model's constants.  Returns (counts, undo)."""
+    from amico_tpu_torch import core, lut, pipeline
+    from amico_tpu_torch.models import base
+    from amico_tpu_torch.ops import native
+    counts, saved = {}, []
+    for obj, attr, key in ((native, 'masked_gather_padded', 'gather'),
+                           (core, '_upload', 'upload'),
+                           (pipeline, 'principal_directions', 'dti'),
+                           (lut, 'dir_to_lut_idx', 'lut'),
+                           (base, 'build_tile_plan', 'plan'),
+                           (model_cls, 'prepare', 'prepare')):
+        f = getattr(obj, attr)
+        saved.append((obj, attr, f))
+        counts[key] = 0
+
+        def counting(*a, _f=f, _k=key, **kw):
+            counts[_k] += 1
+            return _f(*a, **kw)
+        setattr(obj, attr, counting)
+
+    def undo():
+        for obj, attr, f in saved:
+            setattr(obj, attr, f)
+    return counts, undo
+
+
+def warm_state(ev):
+    """The objects a warm re-fit reuses: the facade's masked signal, its
+    upload and DTI directions, the tile driver's plans and staged inputs
+    and the model's constants on the card (None where the path has
+    none)."""
+    import torch
+    dev = torch.device('cuda', torch.cuda.current_device())
+    yc, dc = ev._fit_y_cache, getattr(ev, '_fit_dirs_cache', None)
+    m = ev.model
+    return {'y': yc[3], 'upload': yc[4].get('__y_ext_dev__', {}).get(dev),
+            'dirs': dc[-1] if dc else None,
+            'plan': getattr(m, '_plan_cache', None),
+            'stage': getattr(m, '_stage_cache', None),
+            'prep': m._prep_cache[1].get(dev)}
+
+
+def warm_refit(ev, counter, launches_first, what):
+    """The second fit of ``ev``: it calls none of the cold fit's work
+    (``cold_work_counts``), reuses every cached object, launches the
+    kernel (``counter``: K1 or K2; None for none) as often as the first
+    fit did, and gives the first fit's maps bit for bit.  Logs both fits'
+    facade and engine breakdowns; returns its time."""
+    first = (dict(ev._last_fit_facade_timers),
+             dict(ev.model._last_fit_timers))
+    maps = ev.RESULTS['MAPs'].copy()
+    kept = warm_state(ev)
+    counts, undo = cold_work_counts(type(ev.model))
+    before = counter.launches if counter is not None else 0
+    try:
+        t0 = time.time()
+        ev.fit()
+        warm_s = time.time() - t0
+    finally:
+        undo()
+    launches = counter.launches - before if counter is not None else 0
+    now = warm_state(ev)
+    n_vox = maps[ev.niiMASK_img == 1].shape[0]
+    for fit, (facade, engine) in (('first', first), ('second', (
+            ev._last_fit_facade_timers, ev.model._last_fit_timers))):
+        log(f'{what} {fit} fit breakdown (s): ' + json.dumps(
+            {k: round(v, 4) for k, v in facade.items()}) + ' engine: '
+            + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                          for k, v in engine.items()}))
+    log(f'{what} second fit: {warm_s:.3f} s = {n_vox / warm_s:.0f} '
+        f'voxels/s; cold work called {json.dumps(counts)}; launches '
+        f'{launches} (first fit {launches_first}); reused: '
+        + ', '.join(k for k in kept if now[k] is kept[k]
+                    and kept[k] is not None))
+    check(not any(counts.values()),
+          f'{what}: the second fit redid cold work: {counts}')
+    check(all(now[k] is kept[k] for k in kept),
+          f'{what}: the second fit did not reuse '
+          + ', '.join(k for k in kept if now[k] is not kept[k]))
+    check(launches == launches_first,
+          f'{what}: the second fit launched {launches} times, the first '
+          f'{launches_first}')
+    check(np.array_equal(ev.RESULTS['MAPs'], maps),
+          f'{what}: the second fit\'s maps differ from the first\'s')
+    log(f'{what}: second fit maps equal the first bit for bit')
+    return warm_s
+
+
 def phase_main_path(study, lut_true):
     import numpy as np
     import amico_tpu_torch
@@ -488,12 +588,7 @@ def phase_main_path(study, lut_true):
                                           f'fit_{name}.nii.gz')),
               f'fit_{name}.nii.gz not written')
 
-    t_fit = time.time()
-    ev.fit()
-    warm_s = time.time() - t_fit
-    log(f'second fit: {warm_s:.3f} s = {n_vox / warm_s:.0f} voxels/s; '
-        'engine: ' + json.dumps(
-            {k: round(v, 4) for k, v in ev.model._last_fit_timers.items()}))
+    warm_refit(ev, noddi_fused_tiles, launches, 'NODDI')
 
     t_a = time.time()
     err = noddi_oracle_audit(ev, n=1000, seed=0)
@@ -720,12 +815,7 @@ def phase_fw_main_path(study, lut_true, aniso):
                                           f'{name}.nii.gz')),
               f'{name}.nii.gz not written')
 
-    t_fit = time.time()
-    ev.fit()
-    warm_s = time.time() - t_fit
-    log(f'second fit: {warm_s:.3f} s = {n_vox / warm_s:.0f} voxels/s; '
-        'engine: ' + json.dumps(
-            {k: round(v, 4) for k, v in ev.model._last_fit_timers.items()}))
+    warm_refit(ev, nneg_qp_tiles, launches, 'FreeWater')
 
     t_a = time.time()
     err = freewater_oracle_audit(ev, n=1000, seed=0)
@@ -898,12 +988,7 @@ def phase_czb_pallas(ev, maps_auto):
             f'{got[1]:.3g} max {got[2]:.3g}')
         check(all(g < b for g, b in zip(got, CZB_BACKENDS[k])),
               f'CZB pallas maps disagree with the stagewise run ({k})')
-    t0 = time.time()
-    ev.fit()
-    warm_s = time.time() - t0
-    log(f'CZB pallas second fit: {warm_s:.3f} s = {n_vox / warm_s:.0f} '
-        'voxels/s; engine: ' + json.dumps(
-            {k: round(v, 4) for k, v in ev.model._last_fit_timers.items()}))
+    warm_refit(ev, nneg_qp_tiles, launches, 'CZB pallas')
 
     step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
     G, b, L = czb_tile_inputs(ev.model, ev.KERNELS, ev.htable, 'cuda', step,
@@ -974,18 +1059,16 @@ def phase_sandi(study):
     ev.generate_kernels(ndirs=500)
     ev.load_kernels()
     n_vox = int(np.count_nonzero(ev.niiMASK_img == 1))
-    fits = []
-    for fit in ('first', 'second'):
-        t_fit = time.time()
-        ev.fit()
-        fits.append(time.time() - t_fit)
-        log(f'SANDI {fit} fit: {n_vox} voxels in {fits[-1]:.3f} s = '
-            f'{n_vox / fits[-1]:.0f} voxels/s; fit breakdown (s): '
-            + json.dumps({k: round(v, 4)
-                          for k, v in ev._last_fit_facade_timers.items()})
-            + ' engine: ' + json.dumps(
-                {k: round(v, 4) if isinstance(v, float) else v
-                 for k, v in ev.model._last_fit_timers.items()}))
+    t_fit = time.time()
+    ev.fit()
+    fit_s = time.time() - t_fit
+    log(f'SANDI first fit: {n_vox} voxels in {fit_s:.3f} s = '
+        f'{n_vox / fit_s:.0f} voxels/s')
+    check(noddi_fused_tiles.launches == nneg_qp_tiles.launches == 0,
+          'the SANDI fit launched K1 or K2')
+    warm_refit(ev, None, 0, 'SANDI')
+    check(noddi_fused_tiles.launches == nneg_qp_tiles.launches == 0,
+          'the SANDI fit launched K1 or K2')
     ev.save_results(save_dir_avg=True)
     log(f'SANDI main path: {time.time() - t0:.2f} s end to end')
     # one chunk's fit under the profiler (which slows the host tenfold)
@@ -1284,13 +1367,43 @@ def phase_crash_resume(study, tmp, sweep_maps):
         {'fit_NDI': sweep_maps['fit_NDI']}, '13c: seed-8 fit against the sweep')
 
 
+def fresh_streamed_peak(study, model, what):
+    """A fit streamed under STREAM_BUDGET on a fresh Evaluation: its peak
+    device memory and maps."""
+    import gc
+    import torch
+    import amico_tpu_torch
+    ev = amico_tpu_torch.Evaluation(study, 'subj', device='cuda')
+    ev.set_config('max_device_bytes', STREAM_BUDGET)
+    ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+    ev.set_model(model)
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev.fit()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    maps = ev.RESULTS['MAPs'].copy()
+    del ev
+    gc.collect()
+    log(f'13d: {what} streamed fit on a fresh Evaluation: '
+        f'max_memory_allocated {peak / 2**20:.1f} MiB')
+    return peak, maps
+
+
 def fit_pair(ev, budget, what):
     """A staged fit and one streamed under ``budget`` bytes: (maps of
-    each); prints both fits' times and peak device memory (whole fit, and
-    the tile driver alone)."""
+    each, peak device memory of each); prints both fits' times and peak
+    device memory (whole fit, and the tile driver alone).  The streamed
+    fit keeps no copy of the signal on the card, in the facade or the tile
+    driver."""
+    import gc
     import torch
-    out = []
+    out, peaks = [], []
     for b in (None, budget):
+        gc.collect()
         ev.set_config('max_device_bytes', b)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1309,9 +1422,14 @@ def fit_pair(ev, budget, what):
             f'alone {driver_peak / 2**20:.1f} MiB')
         check(t['streamed'] == int(b is not None),
               f'{what}: the staging mode did not follow the budget')
+        if b is not None:
+            check('__y_ext_dev__' not in ev._fit_y_cache[4]
+                  and ev.model._stage_cache is None,
+                  f'{what}: the streamed fit kept the signal on the card')
         out.append(ev.RESULTS['MAPs'].copy())
+        peaks.append(peak)
     ev.set_config('max_device_bytes', None)
-    return out
+    return out, peaks
 
 
 def phase_streaming(study, fw_study, noddi_maps):
@@ -1319,28 +1437,42 @@ def phase_streaming(study, fw_study, noddi_maps):
     staged and streamed beyond a 64 MiB budget: equal maps."""
     import amico_tpu_torch
     from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
+    fresh_peak, fresh_maps = fresh_streamed_peak(study, 'NODDI', 'NODDI')
     ev = amico_tpu_torch.Evaluation(study, 'subj', device='cuda')
     ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
     ev.set_model('NODDI')
     ev.generate_kernels(ndirs=500)
     ev.load_kernels()
     noddi_fused_tiles.launches = 0
-    staged, streamed = fit_pair(ev, STREAM_BUDGET, 'NODDI')
+    (staged, streamed), peaks = fit_pair(ev, STREAM_BUDGET, 'NODDI')
     mask = ev.niiMASK_img == 1
     check(noddi_fused_tiles.launches > 0, 'the streamed NODDI fit ran no K1')
     check(np.array_equal(staged, streamed)
+          and np.array_equal(streamed, fresh_maps)
           and np.array_equal(streamed[mask], noddi_maps.astype(np.float32)),
           'the streamed NODDI maps differ from the staged ones')
+    check(peaks[1] <= fresh_peak, 'NODDI: the streamed fit after a staged '
+          'one peaked above a streamed fit on a fresh Evaluation')
+    fw_peak, fw_fresh = fresh_streamed_peak(fw_study, 'FreeWater',
+                                            'FreeWater')
     fw = amico_tpu_torch.Evaluation(fw_study, 'subj', device='cuda')
     fw.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
     fw.set_model('FreeWater')
     fw.generate_kernels(ndirs=500)
     fw.load_kernels()
     nneg_qp_tiles.launches = 0
-    staged, streamed = fit_pair(fw, STREAM_BUDGET, 'FreeWater')
+    (staged, streamed), fw_peaks = fit_pair(fw, STREAM_BUDGET, 'FreeWater')
     check(nneg_qp_tiles.launches > 0, 'the streamed FreeWater fit ran no K2')
-    check(np.array_equal(staged, streamed),
+    check(np.array_equal(staged, streamed)
+          and np.array_equal(streamed, fw_fresh),
           'the streamed FreeWater maps differ from the staged ones')
+    check(fw_peaks[1] <= fw_peak, 'FreeWater: the streamed fit after a '
+          'staged one peaked above a streamed fit on a fresh Evaluation')
+    log(f'13d: streamed after staged on one Evaluation peaks at '
+        f'{peaks[1] / 2**20:.1f} MiB (NODDI), {fw_peaks[1] / 2**20:.1f} MiB '
+        f'(FreeWater); on a fresh Evaluation {fresh_peak / 2**20:.1f}, '
+        f'{fw_peak / 2**20:.1f} MiB')
+    del fw
     log(f'13d: streamed maps equal the staged ones bit for bit (NODDI, '
         f'FreeWater; budget {STREAM_BUDGET} bytes, signal '
         f'{ev.y.size * 4} bytes)')

@@ -27,6 +27,7 @@ if __name__ != '__main__':          # the worker imports what it needs
 
 torch.set_num_threads(1)
 
+CPU = torch.device('cpu')
 SMALL = dict(IC_VFs=np.linspace(0.3, 0.99, 4),
              IC_ODs=np.array([0.06, 0.3, 0.8]))
 
@@ -214,6 +215,20 @@ def _worker_pipeline(rank, nproc, workdir):
     n_vox = int(np.count_nonzero(ev.niiMASK_img == 1))
     assert ev.y.shape[0] == n_vox and ev.DIRs.shape == (n_vox, 3)
     assert ev.RESULTS['MAPs'].shape[:3] == ev.get_config('dim')
+    # a second fit on each rank reuses this rank's slab view, directions
+    # and the model's caches, and gathers the same maps
+    slab = dist.host_slab(n_vox)
+    kept = (ev._fit_y_cache[4][(slab.start, slab.stop)],
+            ev._fit_dirs_cache[-1], ev.model._plan_cache,
+            ev.model._stage_cache, ev.model._prep_cache[1][CPU])
+    maps = ev.RESULTS['MAPs'].copy()
+    ev.fit()
+    again = (ev._fit_y_cache[4][(slab.start, slab.stop)],
+             ev._fit_dirs_cache[-1], ev.model._plan_cache,
+             ev.model._stage_cache, ev.model._prep_cache[1][CPU])
+    assert all(a is b for a, b in zip(kept, again)), (rank, kept, again)
+    assert ev._fit_dirs_cache[0] is kept[0]
+    assert np.array_equal(ev.RESULTS['MAPs'], maps)
     ev.save_results()
     print('timers: ' + json.dumps(ev._last_fit_facade_timers), flush=True)
     # the mesh is host-local: this process's devices only

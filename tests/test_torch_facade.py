@@ -272,3 +272,54 @@ def test_debias_config_matches_jax(study, tmp_path):
     check_against_golden(maps, keys, fixture=ref)
     plain, _ = run_port_facade(study, str(tmp_path / 'home'))
     assert not np.array_equal(plain['fit_NDI'], maps['fit_NDI'])
+
+
+def test_modulated_maps_are_noddi_only(tmp_path, capsys):
+    """doSaveModulatedMaps on FreeWater: both facades warn with the JAX
+    package's text and write the same files, the other maps; the port's
+    match the JAX package's (on its Pallas kernel) at
+    tests/test_torch_freewater.py's bounds."""
+    import amico_tpu
+    import amico_tpu_torch
+    from amico_tpu.io import nifti
+    from amico_tpu_torch.testing import (demo_freewater, demo_scheme,
+                                         freewater_voxels, write_demo_subject)
+    from tests.test_torch_freewater import (BOUNDS, PROTOCOL,
+                                            assert_close_dist)
+    os.environ['AMICO_TPU_HOME'] = str(tmp_path / 'home')
+    scheme = demo_scheme(**PROTOCOL)
+    _, kernels, htable = demo_freewater(scheme, 'Human', str(tmp_path / 'k'))
+    y, _, _, _ = freewater_voxels(300, kernels, htable, seed=11)
+    written = {}
+    for pkg in (amico_tpu_torch, amico_tpu):
+        study = str(tmp_path / pkg.__name__)
+        write_demo_subject(os.path.join(study, 'subj'), scheme, y, (10, 6, 5))
+        kw = {'device': 'cpu'} if pkg is amico_tpu_torch else {}
+        ev = pkg.Evaluation(study, 'subj', **kw)
+        ev.set_config('doSaveModulatedMaps', True)
+        ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
+        ev.set_model('FreeWater')
+        if not kw:
+            ev.set_solver(backend='pallas')
+        ev.generate_kernels(ndirs=500)
+        ev.load_kernels()
+        ev.fit()
+        capsys.readouterr()
+        level = pkg.get_verbose()
+        pkg.set_verbose(1)              # another test may have silenced it
+        try:
+            ev.save_results()
+        finally:
+            pkg.set_verbose(level)
+        assert ('"doSaveModulatedMaps" is only meaningful for NODDI, not '
+                '"Free-Water"') in capsys.readouterr().out, pkg.__name__
+        out = os.path.join(study, 'subj', 'AMICO', 'FreeWater')
+        written[pkg] = {f: nifti.load(os.path.join(out, f)).get_fdata()
+                        for f in os.listdir(out) if f.endswith('.nii.gz')}
+    got, ref = written[amico_tpu_torch], written[amico_tpu]
+    assert sorted(got) == sorted(ref) == [
+        'fit_FW.nii.gz', 'fit_FiberVolume.nii.gz', 'fit_dir.nii.gz']
+    np.testing.assert_allclose(got['fit_dir.nii.gz'], ref['fit_dir.nii.gz'],
+                               atol=1e-5)
+    for name in ('fit_FiberVolume.nii.gz', 'fit_FW.nii.gz'):
+        assert_close_dist(got[name], ref[name], BOUNDS['Human'], name)

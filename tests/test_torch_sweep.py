@@ -68,21 +68,75 @@ def test_sweep_survives_bad_subject(study):
     assert not results['s1'].startswith('FAILED')
 
 
-def test_sweep_warm_state_reuses_model_and_matches_fresh(study):
+def test_sweep_warm_state_reuses_model_and_matches_fresh(study, monkeypatch):
     """tests/test_sweep.py:193 on the port: the second subject reuses the
-    first one's model, KERNELS and htable, and its maps equal a fresh
-    sweep's bit for bit."""
+    first one's model, KERNELS and htable, so the model's device constants
+    are built for the first subject alone (``prepare`` runs once), and its
+    maps equal a fresh sweep's bit for bit."""
+    from amico_tpu_torch.models import FreeWater
+    built = []
+    prepare = FreeWater.prepare
+    monkeypatch.setattr(FreeWater, 'prepare', lambda self, *a, **kw: (
+        built.append(1), prepare(self, *a, **kw))[1])
     out2 = study / 's2' / 'AMICO' / 'FreeWater'
     warm = SubjectSweep(str(study), ['s1', 's2'], 'FreeWater',
                         dwi_filename='DWI.nii.gz', config=dict(CPU))
     warm.run(resume=False)
     assert warm._warm is not None and warm.warm_reused == ['s2']
+    assert len(built) == 1
     fw_warm = fw_map(out2).copy()
     fresh = SubjectSweep(str(study), ['s2'], 'FreeWater',
                          dwi_filename='DWI.nii.gz', config=dict(CPU))
     fresh.run(resume=False)
     assert fresh.warm_reused == []
     np.testing.assert_array_equal(fw_warm, fw_map(out2))
+
+
+@pytest.mark.parametrize('case', ['load_data again', 'sweep'])
+def test_a_new_signal_frees_the_old_staged_signal_first(study, tmp_path,
+                                                         monkeypatch, case):
+    """The device budget keeps its meaning when the signal changes under a
+    model that is kept: on one Evaluation after ``load_data`` again, and on
+    the second subject of a sweep (which reuses the first one's model), the
+    staged signal of the fit before, the facade's upload and the model's
+    staged inputs, is freed before the new signal is gathered, so the two
+    are never held at once.  After the sweep, no staged signal is left."""
+    import weakref
+    from amico_tpu_torch import core
+    from amico_tpu_torch.ops import native
+    uploads, alive = [], []
+    upload, gather = core._upload, native.masked_gather_padded
+
+    def watched_upload(*a, **kw):
+        t = upload(*a, **kw)
+        uploads.append(weakref.ref(t))
+        return t
+
+    def watched_gather(*a, **kw):
+        alive.append([u() is not None for u in uploads])
+        return gather(*a, **kw)
+    monkeypatch.setattr(core, '_upload', watched_upload)
+    monkeypatch.setattr(native, 'masked_gather_padded', watched_gather)
+    if case == 'sweep':
+        sweep = SubjectSweep(str(study), ['s1', 's2'], 'FreeWater',
+                             dwi_filename='DWI.nii.gz',
+                             config=dict(CPU, OUTPUT_path=str(tmp_path)))
+        sweep.run(resume=False)
+        assert sweep.warm_reused == ['s2']
+    else:
+        ev = amico_tpu_torch.Evaluation(str(study), 's1', device='cpu',
+                                        output_path=str(tmp_path))
+        ev.set_config('tile_size', 32)
+        ev.load_data(dwi_filename='DWI.nii.gz')
+        ev.set_model('FreeWater')
+        ev.generate_kernels(ndirs=500)
+        ev.load_kernels()
+        ev.fit()
+        ev.load_data(dwi_filename='DWI.nii.gz')      # the model is kept
+        ev.fit()
+        del ev
+    assert len(uploads) == 2 and alive == [[], [False]], alive
+    assert uploads[1]() is None
 
 
 def test_sweep_prefetch_matches_serial_and_surfaces_failures(tmp_path):
