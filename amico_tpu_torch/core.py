@@ -113,7 +113,9 @@ def _default_config(study_path, subject, output_path, device) -> dict:
         nthreads=-1,
         DTI_fit_method='OLS',
         BLAS_nthreads=1,
-        # 'auto' = 128 voxels per tile (models/base.py)
+        # 'auto': on a CUDA card with the tile kernels, the width their
+        # measured cost model picks (engine.auto_tile_size); else 128
+        # (models/base.py, BaseModel._tile_size)
         tile_size='auto',
         voxels_per_chunk='auto',
         # 'auto' | 'reference' | 'generated': where direction sets and the

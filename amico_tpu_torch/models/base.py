@@ -9,12 +9,16 @@ the device from the tile plan (``index_select``); beyond it, it streams
 host-tiled chunks from pinned memory with a bounded number in flight.  The
 chunking is the same in both modes, so are the maps.  Under a device mesh
 (the ``mesh`` config) whole chunks go to the mesh's devices round robin,
-with the same chunking and maps.  Chunks are pulled as late as the
-in-flight window and the ``fit_checkpoint`` cadence allow, and the outputs
-are untiled to (N, ...) NumPy arrays.  As in the JAX driver, a re-fit of the
-same objects reuses the LUT quantization and tile plans (``_plan_cache``),
-the staged inputs on each device (``_stage_cache``, gathered mode only) and
-the model's device constants (``_prep_cache``).
+with the same chunking and maps.  As in the JAX driver, ``tile_size='auto'``
+sizes the tiles of the tile kernels with ``engine.auto_tile_size``, on the
+H100 ladder and per-tile overhead of the model's kernel.  In gathered mode
+on one device each chunk's outputs are written in voxel order on the device
+as soon as it is computed, and copied to the host once at the end; the
+streamed, mesh and checkpointed fits copy each chunk's outputs to the host
+as soon as it is computed and untile them there.  As in the JAX driver, a
+re-fit of the same objects reuses the LUT quantization and tile plans
+(``_plan_cache``), the staged inputs on each device (``_stage_cache``,
+gathered mode only) and the model's device constants (``_prep_cache``).
 """
 from __future__ import annotations
 
@@ -29,8 +33,8 @@ import torch
 
 from .. import lut as _lut
 from ..utils.logging import ERROR
-from .engine import (build_tile_plan, iter_tile_chunks, tile_voxels,
-                     untile_voxels)
+from .engine import (auto_tile_size, build_tile_plan, iter_tile_chunks,
+                     tile_voxels, untile_voxels)
 
 DEFAULT_BACKEND = 'auto'
 DEFAULT_FISTA_ITERS = 40
@@ -66,12 +70,20 @@ DENSE_AS_SOLVER_KW = {
     'cg_iters': 16,
     'converge': True,
 }
-# tile width: the width the JAX package uses off the TPU.  Its TPU
-# lane-width cost model is not carried over (ROADMAP: tile width on the H100)
+# tile width of 'auto' off a CUDA card and on the stagewise solver: the width
+# the JAX package uses off its accelerator.  On a CUDA card the tile kernels'
+# widths come from engine.auto_tile_size on each model's kernel ladder
+# (BaseModel._tile_size)
 DEFAULT_TILE_SIZE = 128
 # voxels per dispatched chunk, in both staging modes: bounds the per-chunk
 # gathered dictionaries and Grams (about 230 KB per 128-voxel tile of the
-# full NODDI grid)
+# full NODDI grid).  The JAX driver's rule for a staged signal, at most 4
+# equal chunks (there to hide 3 of 4 chunks' copies to the host behind
+# compute), gained nothing here: at 128 voxels a tile, its warm fits in
+# turns against this size's read NODDI 0.089 against 0.090 s, FreeWater
+# 0.071 against 0.072, CZB (K2) 0.127 against 0.134, with device waits of
+# 0.0446 / 0.0432, 0.0256 / 0.0240 and 0.0828 / 0.0853 s (tools/fit_turns.py
+# --config-b voxels_per_chunk=110848 on an H100 80GB HBM3, 700 W; PERF.md)
 DEFAULT_VOXELS_PER_CHUNK = 65536
 # the signal is staged on the device whole up to this many float32 bytes,
 # and streamed in chunks beyond it (the JAX package's default)
@@ -88,6 +100,21 @@ def _concrete(device) -> torch.device:
     if device.type == 'cuda' and device.index is None:
         return torch.device('cuda', torch.cuda.current_device())
     return device
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A CUDA tensor's copy in pinned host memory (from the caching host
+    allocator, which keeps the block for the next fit once the array is
+    dropped), as a NumPy array; a CPU tensor as it is.  Into pinned memory
+    the copy of a FreeWater fit's (409,600, 99) corrected DWI took 3.1 ms
+    against 63.9 into pageable memory on an H100 80GB HBM3 at 700 W
+    (tools/tile_widths.py --d2h; PERF.md)."""
+    if t.device.type != 'cuda':
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
 
 
 def _same_plan(a, b) -> bool:
@@ -123,6 +150,12 @@ def _chunk_streams(device) -> list:
 class BaseModel(ABC):
     """Base class for microstructure models (same contract as the JAX
     package's: set / get_params / set_solver / generate / resample / fit)."""
+
+    # the tile kernel's widths and per-tile overhead (in voxel slots) on a
+    # CUDA card, the arguments of engine.auto_tile_size; None: the model
+    # runs no tile kernel and 'auto' is DEFAULT_TILE_SIZE
+    _tile_widths: tuple | None = None
+    _tile_step_overhead = 0.0
 
     @abstractmethod
     def __init__(self):
@@ -226,18 +259,19 @@ class BaseModel(ABC):
             'cg_iters': sp.get('cg_iters', DEFAULT_CG_ITERS),
         }
 
-    def _solver_backend(self) -> str:
-        """Resolve ``backend='auto'``: 'xla' (the stagewise solver) for a
-        model with the ``_prefer_xla_backend`` hint (CylinderZeppelinBall),
-        'pallas' (the tile kernels) otherwise, on either device.  The JAX
-        package resolves the same on its TPU; the hint was chosen from TPU
-        measurements and is kept so that 'auto' means the same in both
-        packages (ROADMAP: re-derive it on the H100)."""
+    def _solver_backend(self, device=None) -> str:
+        """Resolve ``backend='auto'`` for a fit on ``device``: 'pallas' (the
+        tile kernels) on a CUDA card, where the kernels were measured
+        faster (PERF.md); off it, 'xla' (the stagewise solver) for a model
+        with the ``_prefer_xla_backend`` hint (CylinderZeppelinBall) and
+        'pallas' otherwise, as the JAX package resolves on its TPU, so that
+        the CPU fits compare with the JAX package's like with like."""
         backend = str(getattr(self, 'solver_params', {}).get(
             'backend', DEFAULT_BACKEND))
         if backend == 'auto':
+            cuda = device is not None and torch.device(device).type == 'cuda'
             backend = 'xla' if getattr(self, '_prefer_xla_backend', False) \
-                else 'pallas'
+                and not cuda else 'pallas'
         if backend not in ('xla', 'pallas'):
             raise ValueError(f"backend must be 'auto', 'xla' or 'pallas', "
                              f'got {backend!r}')
@@ -283,6 +317,25 @@ class BaseModel(ABC):
                          params_h, np.float64(y_sum).view(np.int64)],
                         np.int64)
 
+    def _tile_size(self, evaluation, pc, backend: str, devices) -> int:
+        """The fit's tile width: the ``tile_size`` config when it is set;
+        else, on the tile kernels (``backend`` 'pallas') on CUDA cards,
+        ``engine.auto_tile_size`` over the direction buckets' sizes on the
+        model's kernel ladder (the counts kept in the plan cache ``pc``, as
+        the JAX driver keeps them); else DEFAULT_TILE_SIZE."""
+        cfg = evaluation.get_config('tile_size')
+        if cfg not in (None, 'auto'):
+            return int(cfg)
+        if backend != 'pallas' or self._tile_widths is None \
+                or any(d.type != 'cuda' for d in devices):
+            return DEFAULT_TILE_SIZE
+        counts = pc[2].get('_counts')
+        if counts is None:
+            counts = pc[2]['_counts'] = np.unique(pc[1],
+                                                  return_counts=True)[1]
+        return auto_tile_size(counts, self._tile_widths,
+                              self._tile_step_overhead)
+
     # ------------------------------------------------- tiled fit driver
     def _run_tiled_fit(self, evaluation, chunk_fn_for, n_outputs_like: dict,
                        device: torch.device):
@@ -294,7 +347,17 @@ class BaseModel(ABC):
         and returns a dict of tensors with leading dims (C, M).
         ``n_outputs_like``: {name: trailing shape} of the outputs.  Returns
         a dict of (N, ...) float32 NumPy arrays in the original voxel
-        order.
+        order.  The tile width is :meth:`_tile_size`'s.
+
+        Gathered on one device (no mesh, no checkpoint), each chunk's
+        outputs are written in voxel order into an (N+1, ...) buffer on the
+        device, on the chunk's stream (``index_copy_`` by the plan's
+        permutation; the padding slots land in row N, dropped), and each
+        buffer is copied to the host once after the last chunk.  Otherwise
+        each chunk's outputs are copied into a tiled host buffer (pinned
+        for a CUDA device) on the chunk's stream as soon as it is computed,
+        and untiled on the host at the end.  Both give the same maps, bit
+        for bit.
 
         Every chunk goes to ``device``, or with the ``mesh`` config
         (``parallel.make_mesh``) whole chunks go to the mesh's devices
@@ -333,9 +396,8 @@ class BaseModel(ABC):
                 or pc[0][2] is not pkey[2]:
             pc = self._plan_cache = (
                 pkey, _lut.dir_to_lut_idx(DIRs, evaluation.htable), {})
-        cfg_tile = evaluation.get_config('tile_size')
-        tile_size = DEFAULT_TILE_SIZE if cfg_tile in (None, 'auto') \
-            else int(cfg_tile)
+        tile_size = self._tile_size(evaluation, pc,
+                                    self._solver_backend(devices[0]), devices)
         vpc = evaluation.get_config('voxels_per_chunk')
         vpc = DEFAULT_VOXELS_PER_CHUNK if vpc in (None, 'auto') else int(vpc)
         chunk_tiles = max(1, vpc // tile_size)
@@ -358,11 +420,26 @@ class BaseModel(ABC):
         # checkpoint's fingerprint
         ystride = max(1, y.size // 65536)
         y_sum = float(np.sum(y.ravel()[::ystride], dtype=np.float64))
-        out_tiles = {k: np.zeros((plan.n_tiles, tile_size) + shape, np.float32)
+        ckpt_path = evaluation.get_config('fit_checkpoint')
+        gathered = device_gather and not ckpt_path \
+            and evaluation.get_config('mesh') is None
+        N = y.shape[0]
+        if gathered:
+            # the outputs in voxel order on the device: every voxel's row is
+            # written once, the padding slots' all go to row N
+            out_dev = {k: torch.empty((N + 1,) + shape, dtype=torch.float32,
+                                      device=devices[0])
+                       for k, shape in n_outputs_like.items()}
+        else:
+            # pinned for a CUDA device, so that each chunk's copy runs on
+            # its stream as soon as the chunk is done
+            pin = any(d.type == 'cuda' for d in devices)
+            out_t = {k: torch.zeros((plan.n_tiles, tile_size) + shape,
+                                    dtype=torch.float32, pin_memory=pin)
                      for k, shape in n_outputs_like.items()}
+            out_tiles = {k: t.numpy() for k, t in out_t.items()}
         # a checkpoint is merged only when it matches this exact fit (the
         # fingerprint) and holds every requested output
-        ckpt_path = evaluation.get_config('fit_checkpoint')
         ckpt_every = int(evaluation.get_config('checkpoint_every') or 4)
         done_until = 0
         if ckpt_path:
@@ -430,18 +507,16 @@ class BaseModel(ABC):
                              .to(d), torch.from_numpy(plan.valid).to(d))
         timers = {'setup_s': time.time() - t_enter,
                   'streamed': int(not device_gather),
-                  'staged_shared': shared}
+                  'staged_shared': shared, 'tile_size': tile_size,
+                  'chunk_tiles': chunk_tiles}
 
-        def pull(item):
-            """Copy one chunk's outputs to the host, once the stream that
-            made them has finished the chunk."""
-            start, stop, res, done = item
+        def pull(done):
+            """Wait until a chunk's outputs are on the host."""
             if done is not None:
                 done.synchronize()
-            for k, arr in res.items():
-                out_tiles[k][start:stop] = arr.float().cpu().numpy()
 
         t_loop = time.time()
+        untile_s = 0.0
         pending = []
         n_dispatched = 0
         # each device's chunk function, built before its streams are taken:
@@ -468,20 +543,32 @@ class BaseModel(ABC):
                     if d.type == 'cuda':
                         Yc = Yc.pin_memory().to(d, non_blocking=True)
                 res = fns[j](Yc, dirs_t[start:stop], valid_t[start:stop])
+                # on the chunk's stream, so after the chunk's work; the
+                # result blocks are freed to that stream, so the allocator
+                # reuses them only after these copies
+                t_u = time.time()
+                for k, arr in res.items():
+                    if gathered:
+                        out_dev[k].index_copy_(
+                            0, idx, arr.reshape((-1,) + out_dev[k].shape[1:])
+                            .float())
+                    else:
+                        out_t[k][start:stop].copy_(arr, non_blocking=True)
+                untile_s += time.time() - t_u
                 done = None
                 if stream is not None:
                     done = torch.cuda.Event()
                     done.record(stream)
-            del Yc
+            del Yc, res
             if len(first_devices) < len(devices):
                 first_devices.append(d)
-            pending.append((start, stop, res, done))
+            pending.append(done)
             n_dispatched += 1
             if len(pending) >= max_inflight:
                 pull(pending.pop(0))
             if ckpt_path and n_dispatched % ckpt_every == 0:
-                for item in pending:
-                    pull(item)
+                for done in pending:
+                    pull(done)
                 pending = []
                 np.savez(ckpt_path + '.tmp', plan_fp=ck_fp, done_until=stop,
                          **out_tiles)
@@ -493,15 +580,20 @@ class BaseModel(ABC):
                 torch.cuda.synchronize(d)
         timers['device_s'] = time.time() - t_loop - timers['dispatch_s']
 
+        # every device is synchronised: the buffers written on the second
+        # stream are complete, and freed only after their copies below
         t_pull = time.time()
-        for item in pending:
-            pull(item)
+        if gathered:
+            out = {k: _to_host(v[:N]) for k, v in out_dev.items()}
+            del out_dev
         timers['pull_s'] = time.time() - t_pull
         if ckpt_path and os.path.isfile(ckpt_path):
             os.remove(ckpt_path)
-        t_unt = time.time()
-        out = {k: untile_voxels(plan, v) for k, v in out_tiles.items()}
-        timers['untile_s'] = time.time() - t_unt
+        if not gathered:
+            t_unt = time.time()
+            out = {k: untile_voxels(plan, v) for k, v in out_tiles.items()}
+            untile_s = time.time() - t_unt
+        timers['untile_s'] = untile_s
         self._last_fit_timers = timers
         self._last_fit_devices = first_devices
         return out

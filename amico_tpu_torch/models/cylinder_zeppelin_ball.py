@@ -9,10 +9,13 @@ STEJSKALTANNER scheme.  ``set``, ``get_params``, ``set_solver``,
 shared ``lut``/``synthesis`` modules.  ``fit`` builds the per-direction
 dictionaries, Grams and Lipschitz constants once (:meth:`prepare`), then
 per chunk gathers the tiles' dictionaries, forms ``b = A'y`` and solves
-(:func:`amico_tpu_torch.models._fitops.solve_tiles`).  ``backend='auto'``
-resolves to the stagewise solver (``'xla'``), as in the JAX package;
-``'pallas'`` runs the tile QP (the CUDA kernel on a CUDA device, its twin
-on the CPU).
+(:func:`amico_tpu_torch.models._fitops.solve_tiles`).  ``'pallas'`` runs
+the tile QP (the CUDA kernel on a CUDA device, its twin on the CPU),
+``'xla'`` the stagewise solver.  ``backend='auto'`` resolves to the tile QP
+on a CUDA card, where it fits the same maps within the oracle audit's
+bounds 12 times faster than the stagewise solver (warm fits of 409,600
+voxels on an H100: 0.110 against 1.318 s; PERF.md), and to the stagewise
+solver on the CPU, as the JAX package resolves it on its TPU.
 
 References
 ----------
@@ -61,11 +64,21 @@ def czb_estimates(x: torch.Tensor, Rs: torch.Tensor,
 
 
 class CylinderZeppelinBall(BaseModel):
+    # K2's widths at n = 26 (64 voxels in flight a tile: multiples of 64)
+    # and its per-tile overhead in voxel slots for engine.auto_tile_size,
+    # fitted on the 409,600-voxel subject of tools/fit_turns.py
+    # (tools/tile_widths.py on an H100 80GB HBM3, 700 W; PERF.md): 24.5
+    # slots, which picks 320 there: its kernel time is 8% above the
+    # fastest width's (192) and 27% under 128's, the slowest (34% above
+    # the fit)
+    _tile_widths = (64, 128, 192, 256, 320, 384)
+    _tile_step_overhead = 24.5
+
     def __init__(self):
         self.id = 'CylinderZeppelinBall'
         self.name = 'Cylinder-Zeppelin-Ball'
-        # the JAX package's hint: 'auto' resolves to the stagewise solver
-        # (chosen on a TPU; ROADMAP: re-derive it on the H100)
+        # the JAX package's hint, kept off a CUDA card: 'auto' resolves to
+        # the stagewise solver there (BaseModel._solver_backend)
         self._prefer_xla_backend = True
         self.maps_name = ['v', 'a', 'd']
         self.maps_descr = ['Intra-cellular volume fraction',
@@ -163,7 +176,7 @@ class CylinderZeppelinBall(BaseModel):
         device = resolve_device(evaluation.get_config('device'))
         configs = self._common_configs(evaluation)
         solver_kw = self._solver_kwargs()
-        backend = self._solver_backend()
+        backend = self._solver_backend(device)
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
         n_perp = len(self.d_perps)

@@ -8,8 +8,10 @@ Host-side (NumPy) responsibilities: sorting voxels by direction, padding
 ragged buckets to tile multiples, and scattering results back.  The padding
 is deterministic, so results do not depend on the chunking.  The module is
 copied rather than imported because ``amico_tpu.models`` imports jax;
-tests/test_torch_engine.py holds the two copies to identical plans.  The
-TPU lane-width cost model (``auto_tile_size``) is not carried over.
+tests/test_torch_engine.py holds the two copies to identical plans, and
+``auto_tile_size`` to the JAX package's on its own ladder.  The models give
+it the H100 ladders and per-tile overheads of their kernels
+(models/base.py).
 """
 from __future__ import annotations
 
@@ -103,3 +105,24 @@ def iter_tile_chunks(n_tiles: int, chunk: int):
         stop = min(start + chunk, n_tiles)
         yield start, stop, chunk - (stop - start)
 
+
+
+def auto_tile_size(counts: np.ndarray,
+                   widths=(128, 256, 384, 512, 640, 768, 896, 1024),
+                   step_overhead: float = 64.0) -> int:
+    """The width of ``widths`` that minimises the predicted solve time for
+    direction-bucket sizes ``counts``: the padded slots scale the work,
+    and each tile costs ``step_overhead`` voxel slots more, so the cost is
+    slots x (1 + step_overhead / m).  The defaults are the JAX package's
+    TPU ladder and overhead (every multiple of the 128-lane tile, c = 64),
+    with which this returns what ``amico_tpu.models.engine.auto_tile_size``
+    returns; the tile driver passes each kernel's own ladder and overhead
+    as measured on the H100 (models/base.py)."""
+    counts = np.asarray(counts)
+    best_m, best = widths[0], float('inf')
+    for m in widths:
+        slots = int(np.sum(-(-counts // m) * m)) if counts.size else m
+        cost = slots * (1.0 + step_overhead / m)
+        if cost < best:
+            best_m, best = m, cost
+    return best_m

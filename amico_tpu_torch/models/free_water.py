@@ -29,6 +29,16 @@ from .base import BaseModel
 
 
 class FreeWater(BaseModel):
+    # K2's widths at n = 11 and 12 (128 voxels in flight a tile: multiples
+    # of 128) and its per-tile overhead in voxel slots for
+    # engine.auto_tile_size.  The fit gives a negative overhead (-78 and -41
+    # slots: a tile's `converge` exit waits for more voxels the wider it
+    # is), so it is 0 here and the narrowest width, which pads least, is
+    # picked: 128, the fastest of the ladder by 28-60% (tools/tile_widths.py
+    # on an H100 80GB HBM3, 700 W; PERF.md)
+    _tile_widths = (128, 256, 384, 512)
+    _tile_step_overhead = 0.0
+
     def __init__(self):
         self.id = 'FreeWater'
         self.name = 'Free-Water'
@@ -148,7 +158,7 @@ class FreeWater(BaseModel):
         configs = self._common_configs(evaluation)
         save_corrected = bool(evaluation.get_config('doSaveCorrectedDWI'))
         solver_kw = self._solver_kwargs()
-        backend = self._solver_backend()
+        backend = self._solver_backend(device)
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
         kernels = evaluation.KERNELS

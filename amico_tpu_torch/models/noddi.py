@@ -87,6 +87,19 @@ def _check_precision(precision) -> None:
 
 
 class NODDI(BaseModel):
+    # K1's widths (a warp a voxel, 32 warps a tile: multiples of 32) and its
+    # per-tile overhead in voxel slots for engine.auto_tile_size.  Replayed
+    # one launch after another, K1's launches at 32-256 fit the padded
+    # slots with an overhead of 2 slots a tile (within 2%), which would
+    # pick 64 (0.7% under 128); in the fit, whose chunks overlap on two
+    # streams, 64 waited 2-5% longer than 128 in every reading and its
+    # chunks' Grams raised the peak device memory by 135 MiB, so the
+    # ladder holds 128 alone (tools/tile_widths.py, chip_smoke.py on an
+    # H100 80GB HBM3, 700 W; PERF.md).  The maps are the same bit for bit
+    # at every width
+    _tile_widths = (128,)
+    _tile_step_overhead = 2.0
+
     def __init__(self):
         self.id = 'NODDI'
         self.name = 'NODDI'
@@ -299,7 +312,7 @@ class NODDI(BaseModel):
         device = resolve_device(evaluation.get_config('device'))
         configs = self._common_configs(evaluation)
         modulated = bool(evaluation.get_config('doSaveModulatedMaps'))
-        stagewise = self._solver_backend() == 'xla'
+        stagewise = self._solver_backend(device) == 'xla'
         if stagewise:
             kw1, kw2, kw3 = self._stagewise_kwargs()
         else:

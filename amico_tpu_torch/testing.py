@@ -135,30 +135,32 @@ def demo_voxels(n: int, kernels: dict, htable: np.ndarray, seed: int = 0):
     return y, DIRs, lut_idx
 
 
-def _tiles(y: np.ndarray, lut_idx: np.ndarray, device, n_tiles: int):
-    """The first ``n_tiles`` 128-voxel tiles of voxels ``y`` as a model's
-    fit gathers them: signals Y (n_tiles, 128, nS) float32 and the tiles'
+def _tiles(y: np.ndarray, lut_idx: np.ndarray, device, n_tiles: int,
+           M: int = 128):
+    """The first ``n_tiles`` M-voxel tiles of voxels ``y`` as a model's
+    fit gathers them: signals Y (n_tiles, M, nS) float32 and the tiles'
     LUT directions (n_tiles,)."""
     import torch
     from .models.engine import build_tile_plan
-    plan = build_tile_plan(lut_idx, 128)
+    plan = build_tile_plan(lut_idx, M)
     y_ext = torch.as_tensor(np.concatenate([y, np.zeros((1, y.shape[1]))]),
                             dtype=torch.float32, device=device)
-    perm = torch.as_tensor(plan.perm[:n_tiles * 128].astype(np.int64),
+    perm = torch.as_tensor(plan.perm[:n_tiles * M].astype(np.int64),
                            device=device)
     dirs = torch.as_tensor(plan.tile_dirs[:n_tiles].astype(np.int64),
                            device=device)
-    return y_ext[perm].view(n_tiles, 128, -1), dirs
+    return y_ext[perm].view(n_tiles, M, -1), dirs
 
 
 def noddi_tile_inputs(model, kernels, htable, device, n_tiles: int,
-                      seed: int = 0) -> list:
+                      seed: int = 0, M: int = 128) -> list:
     """The fused solve's inputs (G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf,
-    kappa) for the first ``n_tiles`` 128-voxel tiles of ``demo_voxels``,
-    built as ``model.fit`` builds them."""
+    kappa) for the first ``n_tiles`` M-voxel tiles of ``demo_voxels``
+    (n_tiles x 5M/4 of them), built as ``model.fit`` builds them."""
     from .models._fitops import project
-    y, _, lut_idx = demo_voxels(n_tiles * 160, kernels, htable, seed=seed)
-    Y, dirs = _tiles(y, lut_idx, device, n_tiles)
+    y, _, lut_idx = demo_voxels(n_tiles * M * 5 // 4, kernels, htable,
+                                seed=seed)
+    Y, dirs = _tiles(y, lut_idx, device, n_tiles, M)
     c = model.prepare(kernels, device)
     return [c['G1_all'][dirs], c['G2_all'][dirs],
             project(c['A_all'][dirs], Y),
@@ -426,14 +428,14 @@ def freewater_voxels(n: int, kernels: dict, htable: np.ndarray,
 
 
 def freewater_tile_inputs(model, kernels, htable, device, n_tiles: int,
-                          seed: int = 0) -> list:
-    """The tile QP's inputs [G, b] for the first ``n_tiles`` 128-voxel
-    tiles of :func:`freewater_voxels`, built as ``FreeWater.fit`` builds
-    them."""
+                          seed: int = 0, M: int = 128) -> list:
+    """The tile QP's inputs [G, b] for the first ``n_tiles`` M-voxel tiles
+    of :func:`freewater_voxels` (n_tiles x 5M/4 of them), built as
+    ``FreeWater.fit`` builds them."""
     from .models._fitops import project
-    y, _, lut_idx, _ = freewater_voxels(n_tiles * 160, kernels, htable,
-                                        seed=seed)
-    Y, dirs = _tiles(y, lut_idx, device, n_tiles)
+    y, _, lut_idx, _ = freewater_voxels(n_tiles * M * 5 // 4, kernels,
+                                        htable, seed=seed)
+    Y, dirs = _tiles(y, lut_idx, device, n_tiles, M)
     c = model.prepare(kernels, device)
     return [c['G_all'][dirs], project(c['A_all'][dirs], Y)]
 
@@ -528,13 +530,14 @@ def sandi_oracle_audit(evaluation, n: int = 1000,
 
 
 def czb_tile_inputs(model, kernels, htable, device, n_tiles: int,
-                    seed: int = 0) -> list:
-    """The tile QP's inputs [G, b, L] for the first ``n_tiles`` 128-voxel
-    tiles of :func:`czb_voxels`, built as ``CylinderZeppelinBall.fit``
-    builds them."""
+                    seed: int = 0, M: int = 128) -> list:
+    """The tile QP's inputs [G, b, L] for the first ``n_tiles`` M-voxel
+    tiles of :func:`czb_voxels` (n_tiles x 5M/4 of them), built as
+    ``CylinderZeppelinBall.fit`` builds them."""
     from .models._fitops import project
-    y, _, lut_idx, _ = czb_voxels(n_tiles * 160, kernels, htable, seed=seed)
-    Y, dirs = _tiles(y, lut_idx, device, n_tiles)
+    y, _, lut_idx, _ = czb_voxels(n_tiles * M * 5 // 4, kernels, htable,
+                                  seed=seed)
+    Y, dirs = _tiles(y, lut_idx, device, n_tiles, M)
     c = model.prepare(kernels, device)
     return [c['G_all'][dirs], project(c['A_all'][dirs], Y), c['L_all'][dirs]]
 

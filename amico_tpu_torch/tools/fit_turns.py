@@ -2,7 +2,7 @@
 
     python -m amico_tpu_torch.tools.fit_turns TREE_A TREE_B [--reps N]
         [--model NODDI|FreeWater|CylinderZeppelinBall|SANDI] [--backend B]
-        [--out FILE]
+        [--config KEY=VALUE]... [--config-b KEY=VALUE]... [--out FILE]
 
 Writes ``chip_smoke.py``'s subject of the model once (409,600 voxels,
 seed 7: NODDI and FreeWater Human on bench.py's reference-scale protocol,
@@ -12,15 +12,22 @@ in the order A B B A (``--reps`` times over), a fresh process with that
 checkout first on ``sys.path``: ``Evaluation(device='cuda')``,
 ``load_data`` -> ``set_model`` (and ``set_solver(backend=B)`` when given)
 -> ``generate_kernels(ndirs=500)`` -> ``load_kernels``, then three fits.
-Each run prints the fits' wall times, the facade's and the tile engine's
-timers and a digest of the maps as one JSON line; the first fit pays the
-process's one-time CUDA set-up, the other two are warm.  The summary gives
-each checkout's first fit, its stage_voxels_s, its warm fit and device
-wait, and whether every fit of both wrote the same maps, bit for bit.
+``--config`` sets an Evaluation config in every run before ``load_data``
+(the value read as a Python literal, else as a string: ``tile_size=128``,
+``voxels_per_chunk=65536``, ``doSaveCorrectedDWI=True``), ``--config-b``
+in checkout B's runs only, after ``--config``: TREE_A and TREE_B may then
+be the same checkout.  Each run prints the fits' wall times, the facade's
+and the tile engine's timers and a digest of the maps as one JSON line;
+the first fit pays the process's one-time CUDA set-up, the other two are
+warm.  The summary gives each checkout's first fit, its stage_voxels_s,
+its warm fit and device wait, whether every fit of both wrote the same
+maps, bit for bit, and the distance of each run's maps from checkout A's
+first run (median, p95 and max over the masked voxels' maps).
 """
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import os
 import subprocess
@@ -37,6 +44,8 @@ import amico_tpu_torch
 amico_tpu_torch.set_verbose(1)
 ev = amico_tpu_torch.Evaluation({study!r}, 'subj', device='cuda')
 ev.set_config('doDirectionalAverage', {model!r} == 'SANDI')
+for k, v in {config!r}.items():
+    ev.set_config(k, v)
 ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
 ev.set_model({model!r})
 if {backend!r}:
@@ -51,8 +60,29 @@ for _ in range(3):
     fits.append(dict(ev.model._last_fit_timers, fit_s=time.time() - t0,
                      facade=ev._last_fit_facade_timers,
                      maps=hashlib.sha256(maps.tobytes()).hexdigest()))
+np.save({maps_out!r}, ev.RESULTS['MAPs'][ev.niiMASK_img == 1])
 print('RESULT ' + json.dumps({{'tree': {tree!r}, 'fits': fits}}))
 '''
+
+
+def parse_configs(pairs) -> dict:
+    """{key: value} from KEY=VALUE strings, each value a Python literal
+    where it reads as one, else the string."""
+    out = {}
+    for pair in pairs:
+        key, _, value = pair.partition('=')
+        try:
+            out[key] = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            out[key] = value
+    return out
+
+
+def distance(a, b) -> dict:
+    """median, p95 and max of |a - b| over every map value."""
+    e = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return {'median': float(np.median(e)),
+            'p95': float(np.percentile(e, 95)), 'max': float(e.max())}
 
 
 def write_subject(model, tmp):
@@ -92,6 +122,10 @@ def main(argv=None):
                     choices=('NODDI', 'FreeWater', 'CylinderZeppelinBall',
                              'SANDI'))
     ap.add_argument('--backend', default='')
+    ap.add_argument('--config', action='append', default=[],
+                    metavar='KEY=VALUE')
+    ap.add_argument('--config-b', action='append', default=[],
+                    metavar='KEY=VALUE')
     ap.add_argument('--out')
     a = ap.parse_args(argv)
     import torch
@@ -100,18 +134,24 @@ def main(argv=None):
     from amico_tpu_torch import set_verbose
     set_verbose(1)
     trees = [os.path.abspath(t) for t in a.trees]
-    runs = []
+    configs = [parse_configs(a.config),
+               dict(parse_configs(a.config), **parse_configs(a.config_b))]
+    runs, ref = [], None
     with tempfile.TemporaryDirectory() as tmp:
         home = os.path.join(tmp, 'home')
         os.environ['AMICO_TPU_HOME'] = home
         study = write_subject(a.model, tmp)
         env = dict(os.environ, AMICO_TPU_HOME=home)
+        maps_out = os.path.join(tmp, 'maps.npy')
         for _ in range(a.reps):
-            for tree in trees + trees[::-1]:
+            for label in 'ABBA':
+                i = 'AB'.index(label)
+                tree = trees[i]
                 proc = subprocess.run(
                     [sys.executable, '-c', CHILD.format(
                         tree=tree, study=study, model=a.model,
-                        backend=a.backend)],
+                        backend=a.backend, config=configs[i],
+                        maps_out=maps_out)],
                     cwd=tree, env=env, capture_output=True, text=True,
                     timeout=600)
                 lines = [ln for ln in proc.stdout.splitlines()
@@ -119,27 +159,38 @@ def main(argv=None):
                 if proc.returncode != 0 or not lines:
                     raise SystemExit(f'{tree}: run failed\n'
                                      f'{proc.stderr[-3000:]}')
-                run = json.loads(lines[0][7:])
+                run = dict(json.loads(lines[0][7:]), label=label,
+                           config=configs[i])
+                maps = np.load(maps_out)
+                if ref is None:
+                    ref = maps
+                run['maps_vs_first_a'] = distance(maps, ref)
                 runs.append(run)
                 print(json.dumps(run), flush=True)
-    for tree in trees:
-        first = [r['fits'][0]['fit_s'] for r in runs if r['tree'] == tree]
-        stage = [r['fits'][0]['facade']['stage_voxels_s'] for r in runs
-                 if r['tree'] == tree]
-        print(f'{tree}: first fit median {np.median(first):.3f} s '
-              f'(readings {[round(w, 3) for w in first]}); its '
-              f'stage_voxels_s {[round(w, 4) for w in stage]}', flush=True)
-        warm = [f['fit_s'] for r in runs if r['tree'] == tree
-                for f in r['fits'][1:]]
-        dev = [f['device_s'] for r in runs if r['tree'] == tree
-               for f in r['fits'][1:]]
-        print(f'{tree}: warm fit median {np.median(warm):.3f} s '
+    for label, tree in zip('AB', trees):
+        mine = [r for r in runs if r['label'] == label]
+        first = [r['fits'][0]['fit_s'] for r in mine]
+        stage = [r['fits'][0]['facade']['stage_voxels_s'] for r in mine]
+        print(f'{label} {tree} {configs["AB".index(label)]}: first fit '
+              f'median {np.median(first):.3f} s (readings '
+              f'{[round(w, 3) for w in first]}); its stage_voxels_s '
+              f'{[round(w, 4) for w in stage]}', flush=True)
+        warm = [f['fit_s'] for r in mine for f in r['fits'][1:]]
+        dev = [f['device_s'] for r in mine for f in r['fits'][1:]]
+        print(f'{label}: warm fit median {np.median(warm):.3f} s '
               f'(readings {[round(w, 3) for w in warm]}); device wait '
               f'median {np.median(dev):.4f} s (readings '
               f'{[round(d, 4) for d in dev]})', flush=True)
     digests = {f['maps'] for r in runs for f in r['fits']}
     print(f'{a.model}: the same maps in every fit of both checkouts: '
           f'{len(digests) == 1}', flush=True)
+    for label in 'AB':
+        d = [r['maps_vs_first_a'] for r in runs if r['label'] == label]
+        print(f'{label}: maps against A\'s first run: median '
+              f'{max(x["median"] for x in d):.3g} p95 '
+              f'{max(x["p95"] for x in d):.3g} max '
+              f'{max(x["max"] for x in d):.3g} (the largest over its runs)',
+              flush=True)
     if a.out:
         with open(a.out, 'w') as f:
             json.dump(runs, f, indent=1)

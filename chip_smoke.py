@@ -6,11 +6,14 @@ Phases; any failure exits non-zero and prints no result line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile amico_tpu_torch/csrc/*.cu with nvcc into build/;
-3. kernel vs twin: the fused NODDI kernel against its plain PyTorch twin,
-   both on the card, on 3,200 128-voxel tiles of synthetic voxels on the
-   full 145-atom grid in the main path's launches, in vivo and exvivo;
-   maps by median/p95/max and coefficients by stage-3 objective (both ways
-   and the share of voxels where the kernel's is worse), with both times;
+3. kernel vs twin (right after phase 4, at its resolved tile width): the
+   fused NODDI kernel against its plain PyTorch twin, both on the card, on
+   409,600 voxels' worth of tiles (3,200 at 128 voxels) of synthetic voxels
+   on the full 145-atom grid in the main path's launches, in vivo and
+   exvivo; maps by median/p95/max and coefficients by stage-3 objective
+   (both ways and the share of voxels where the kernel's is worse), with
+   both times, and the kernel's time a voxel slot at that width and at 128
+   in turns;
 4. main path: a synthetic full-brain subject (409,600 masked voxels on
    the JAX bench's reference-scale protocol, 9 b0 + 30 @ b=700 + 60 @
    b=2000) through Evaluation(device='cuda'): load_data ->
@@ -21,13 +24,17 @@ Phases; any failure exits non-zero and prints no result line:
    calls none of the masked gather, the signal's upload, the DTI fit, the
    LUT quantization, ``build_tile_plan`` or the model's ``prepare``,
    reuses every cached object, launches the kernel as often as the first
-   and gives its maps bit for bit);
-5. tile QP vs twin: the tile QP kernel against its plain PyTorch twin,
-   both on the card, in the main path's launches of 512 tiles x 128
-   voxels: FreeWater Human and Mouse (3,200 tiles each, the default
-   active-set schedule with `converge`) by maps and objective, and
-   tests/test_pallas_qp.py's random problems (n = 21, lambda2 = 4, 512
-   tiles) under the dense schedule, so FISTA and the flat budget run too;
+   and gives its maps bit for bit); the tile width 'auto' resolved to
+   (``engine.auto_tile_size`` on K1's ladder), a launch a chunk, and the
+   maps against a fit at 128 voxels a tile (``against_128``);
+5. tile QP vs twin (right after phase 6, at its resolved width): the tile
+   QP kernel against its plain PyTorch twin, both on the card, in the main
+   path's launches: FreeWater Human and Mouse (409,600 voxels' worth of
+   tiles each, the default active-set schedule with `converge`) by maps
+   and objective, with Human's time a voxel slot at that width and at 128
+   in turns, and tests/test_pallas_qp.py's random problems (n = 21,
+   lambda2 = 4, 512 tiles of 128) under the dense schedule, so FISTA and
+   the flat budget run too;
    for each, the `converge` tail (``testing.qp_tail`` on the twin's run:
    tiles by continuation rounds and by what ended them) and the kernel's
    time with and without `converge`; then the kernel against the twin at
@@ -37,8 +44,8 @@ Phases; any failure exits non-zero and prints no result line:
    and protocol) through Evaluation(device='cuda') with
    doSaveCorrectedDWI, load_data -> save_results, with the tile QP's
    launch count, the DTI directions, map sanity, the written files, the
-   warm re-fit as in phase 4 and an exact-oracle audit of 1,000 sampled
-   voxels;
+   warm re-fit as in phase 4, an exact-oracle audit of 1,000 sampled
+   voxels and the maps against a fit at 128 voxels a tile;
 7. build-cache probe (T1): ``amico_tpu_torch.tools.loc_experiment``'s
    candidates (the build key from two call sites and from a second process
    in another working directory, which must reuse the build), then T1
@@ -49,14 +56,16 @@ Phases; any failure exits non-zero and prints no result line:
    JAX bench's STEJSKALTANNER protocol (1 b0 + 30 @ b=3000 + 30 @
    b=6000, VERSION: 1 scheme; 21 radii + 4 zeppelins + 1 ball) through
    Evaluation(device='cuda'), load_data -> save_results with
-   backend='auto', which is the stagewise solver: map ranges, the written
-   files, the DTI directions, an exact-oracle audit of 1,000 voxels, first
-   and second fit;
-9. the same subject with backend='pallas' (K2 at n = 26): its launch
-   count, its maps against the stagewise run's, the warm re-fit as in
-   phase 4, and K2, its twin and the
-   stagewise solver on 512 CZB tiles (agreement by maps and objective,
-   times, the `converge` tail);
+   backend='xla', the stagewise solver: map ranges, the written files, the
+   DTI directions, an exact-oracle audit of 1,000 voxels, first and second
+   fit;
+9. the same subject with backend='auto', which on the card resolves to K2
+   (n = 26) at its resolved width: its launch count (one a chunk), its maps
+   against the stagewise run's, the warm re-fit as in phase 4, the oracle
+   audit, the host untile (a one-card mesh) against the gathered fit bit
+   for bit, the maps against a fit at 128 voxels a tile, and K2, its twin
+   and the stagewise solver on one launch of CZB tiles of that width
+   (agreement by maps and objective, times, the `converge` tail);
 10. NODDI with backend='xla' (the stagewise solve) on phase 4's subject:
    its maps against the fused path's by distribution, and the oracle audit
    at phase 4's bounds;
@@ -83,10 +92,12 @@ Phases; any failure exits non-zero and prints no result line:
       (``config.pickle`` untouched);
    c. the seed-8 subject with checkpoint_every=1, raised after its second
       chunk by a wrapper of the chunk function; the rerun resumes from
-      ``done_until``, equals the uninterrupted fit bit for bit and deletes
-      the checkpoint;
+      ``done_until`` (two chunks of the resolved width), equals the
+      uninterrupted fit bit for bit (the checkpointed fit untiles on the
+      host, the uninterrupted one on the card) and deletes the checkpoint;
    d. NODDI, and FreeWater on phase 6's subject, staged and streamed beyond
-      a 64 MiB ``max_device_bytes``: equal maps, times and peak device
+      a 64 MiB ``max_device_bytes``: equal maps (the staged fit untiles on
+      the card, the streamed one on the host), times and peak device
       memory; the streamed fit after the staged one on one Evaluation keeps
       no copy of the signal on the card and peaks no higher than a streamed
       fit on a fresh Evaluation;
@@ -99,9 +110,10 @@ Phases; any failure exits non-zero and prints no result line:
    g. a fit with ``profile_dir``: the trace names K1's kernel and ``fit``;
    h. ``python -m amico_tpu_torch warmup --study`` (beside a) exits 0;
 14. mesh and multi-process execution (``amico_tpu_torch.parallel``):
-   a. phase 4's subject with ``mesh=make_mesh()`` (every local card): its
-      maps equal phase 4's bit for bit, with phase 4's K1 launches, and the
-      chunks' devices (``_last_fit_devices``);
+   a. phase 4's subject with ``mesh=make_mesh()`` (every local card; the
+      mesh untiles on the host): its maps equal phase 4's bit for bit, with
+      phase 4's K1 launches, and the chunks' devices
+      (``_last_fit_devices``);
    b. phase 6's subject the same way: its maps equal phase 6's bit for bit,
       with phase 6's K2 launches;
    c. two processes (``python chip_smoke.py rank <r> ...``) with
@@ -113,7 +125,9 @@ Phases; any failure exits non-zero and prints no result line:
       barrier: the transfer alone) and K1 launches.
 
 The kernels are built in phase 2; every launch count is read from the main
-path's run alone (counts set to 0 just before it).  Each kernel's bound is
+path's run alone (counts set to 0 just before it), and the kernels are held
+against their twins at the tile width and chunking the main path resolved
+(``_last_fit_timers``).  Each kernel's bound is
 the larger of its bytes (inputs read once, outputs written once) over the
 card's memory rate and the operations that this run's inputs need
 (``testing.solve_work`` counts the data-dependent solves on the timed
@@ -317,21 +331,36 @@ def phase_build():
         f'-> {cuda_build.library_path()}')
 
 
-def phase_kernel_vs_twin(scheme, kernels, htable):
+def width_turns(what, runs):
+    """ms a launch of each width's launch (``runs``: {width: (call, tiles)})
+    with CUDA events, the widths in turns (A B B A), printed with the time a
+    voxel slot; returns {width: ms}."""
+    ms = {M: [] for M in runs}
+    for M in list(runs) + list(runs)[::-1]:
+        ms[M].append(cuda_ms(runs[M][0], 3))
+    out = {M: float(np.mean(v)) for M, v in ms.items()}
+    log(f'{what} by tile width (CUDA events, in turns): ' + '; '.join(
+        f'{M} voxels: {out[M]:.3f} ms a launch of {runs[M][1]} tiles, '
+        f'{out[M] * 1e6 / (runs[M][1] * M):.2f} ns a voxel slot'
+        for M in runs))
+    return out
+
+
+def phase_kernel_vs_twin(scheme, kernels, htable, M, step):
+    """K1 against its twin on N_TILES x 128 voxels' worth of tiles of the
+    main path's width ``M``, in its launches of ``step`` tiles."""
     import torch
     from amico_tpu_torch.models import NODDI
-    from amico_tpu_torch.models.base import (DEFAULT_TILE_SIZE,
-                                             DEFAULT_VOXELS_PER_CHUNK)
     from amico_tpu_torch.ops.cuda_qp import (noddi_fused_tiles,
                                              noddi_fused_tiles_torch)
     from amico_tpu_torch.testing import (fused_agreement, noddi_tile_inputs,
                                          solve_work)
-    step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
+    n_tiles = N_TILES * 128 // M
 
     def chunks(args):
         # the main path's launches: `step` tiles each (per-tile Grams,
         # dictionaries and signals), the LUT constants shared
-        for i in range(0, N_TILES, step):
+        for i in range(0, n_tiles, step):
             yield [a[i:i + step] if a.dim() == 3 else a for a in args]
 
     def run(fn, args, exvivo):
@@ -343,14 +372,14 @@ def phase_kernel_vs_twin(scheme, kernels, htable):
         model = NODDI()
         model.set(isExvivo=exvivo)
         model.scheme = scheme
-        args = noddi_tile_inputs(model, kernels, htable, 'cuda', N_TILES,
-                                 seed=1)
+        args = noddi_tile_inputs(model, kernels, htable, 'cuda', n_tiles,
+                                 seed=1, M=M)
         out_k = run(noddi_fused_tiles, args, exvivo)
         out_t = run(noddi_fused_tiles_torch, args, exvivo)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out_k[0]).all()), 'kernel maps not finite')
         a = fused_agreement(args, out_k, out_t)
-        log(f'kernel vs twin (exvivo={exvivo}, {N_TILES} tiles x 128 voxels '
+        log(f'kernel vs twin (exvivo={exvivo}, {n_tiles} tiles x {M} voxels '
             f'in launches of {step} tiles, {args[2].shape[-1]} atoms): '
             f'maps median {a["map_median"]:.3g} p95 {a["map_p95"]:.3g} max '
             f'{a["map_max"]:.3g}, voxels off > 5e-3 {a["map_share_off"]:.4g}; '
@@ -377,12 +406,19 @@ def phase_kernel_vs_twin(scheme, kernels, htable):
             b = bound(n_b, work['flops'])
             times = (ms, plain_ms) + b
             log(f'kernel {ms:.3f} ms, twin {plain_ms:.3f} ms per launch of '
-                f'{step} tiles x 128 voxels (CUDA events); least work '
+                f'{step} tiles x {M} voxels (CUDA events); least work '
                 f'{n_b} bytes, {work["flops"]:.4g} '
                 f'FLOP ({work["matvecs"] / (C * M):.0f} matvecs a voxel, '
                 f'{work["nonzeros"] / work["matvecs"]:.3g} nonzeros and '
                 f'{work["rows"] / work["matvecs"]:.3g} rows each): bound '
                 f'{b[0]:.4f} ms ({b[1]}), {b[0] / ms:.2%} of it reached')
+            runs = {M: (lambda: noddi_fused_tiles(*first), step)}
+            if M != 128:
+                at128 = noddi_tile_inputs(model, kernels, htable, 'cuda',
+                                          512, seed=1)
+                runs[128] = (lambda: noddi_fused_tiles(*at128), 512)
+            width_turns('K1', runs)
+            del runs
         del args, out_k, out_t
     return worst, times, k1a_args
 
@@ -431,7 +467,8 @@ def phase_k1a(args, kernels):
         twin_ms = cuda_ms(lambda: noddi_fused_tiles_torch(*args, **kw), 1)
         rows[name] = (float(np.mean(ms[name])), float(np.mean(ms['default'])),
                       twin_ms)
-        log(f'K1a {name} ({args[0].shape[0]} tiles x 128 voxels): kernel vs '
+        log(f'K1a {name} ({args[0].shape[0]} tiles x {args[2].shape[1]} '
+            'voxels): kernel vs '
             f'twin maps median {a["map_median"]:.3g} p95 {a["map_p95"]:.3g} '
             f'max {a["map_max"]:.3g}; objective gap p99 '
             f'{a["obj_gap_p99"]:.3g}, worse on {a["obj_share_worse"]:.4g}'
@@ -574,6 +611,7 @@ def phase_main_path(study, lut_true):
     check(launches > 0, 'the main path never launched the fused kernel')
     check(ev.model._last_fit_timers['staged_shared'] == 1,
           "the tile driver did not gather from the facade's upload")
+    width = resolved_width(ev, 'NODDI', launches)
     agree = direction_agreement(ev, lut_true)
     log(f'DTI directions (card): LUT direction of the true one on '
         f'{agree:.6f} of voxels')
@@ -599,7 +637,9 @@ def phase_main_path(study, lut_true):
         f'FWF {err[:, 2].max():.3g}')
     check(med < AUDIT_MEDIAN and p95 < AUDIT_P95 and mx < AUDIT_MAX,
           'oracle audit outside its bounds')
-    return launches, maps.astype(np.float64)
+    against_128(ev, maps, 'NODDI', [('NDI, ODI, FWF', slice(None), (
+        KERNEL_MAP_MEDIAN, KERNEL_MAP_P95, None))])
+    return launches, maps.astype(np.float64), width
 
 
 def log_tail(name, tails, timed):
@@ -674,14 +714,13 @@ def phase_qp_edges():
     return worst
 
 
-def phase_qp_vs_twin(scheme, tmp):
+def phase_qp_vs_twin(scheme, tmp, M, step):
     """The tile QP kernel against its twin; returns the worst compared
     error and the kernel's and twin's ms per launch of the main path's
-    shape (FreeWater Human, 512 tiles x 128 voxels)."""
+    shape (FreeWater Human: ``step`` tiles of the main path's width
+    ``M``)."""
     import torch
     from amico_tpu_torch.models.base import (DEFAULT_AS_SOLVER_KW,
-                                             DEFAULT_TILE_SIZE,
-                                             DEFAULT_VOXELS_PER_CHUNK,
                                              DENSE_AS_SOLVER_KW)
     from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, nneg_qp_tiles_torch
     from functools import partial
@@ -689,7 +728,8 @@ def phase_qp_vs_twin(scheme, tmp):
                                          freewater_tile_inputs, qp_agreement,
                                          qp_tail, random_qp_problems,
                                          solve_work)
-    step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
+
+    step_main = step
 
     def run(fn, G, b, lam2, kw):
         return torch.cat([fn(G[i:i + step], b[i:i + step], None, 0.0, lam2,
@@ -706,14 +746,18 @@ def phase_qp_vs_twin(scheme, tmp):
             model, kernels, htable = demo_freewater(
                 scheme, typ, os.path.join(tmp, f'fw_{typ}'))
             yield (typ, *freewater_tile_inputs(model, kernels, htable, 'cuda',
-                                               N_TILES, seed=1),
-                   1e-3, DEFAULT_AS_SOLVER_KW, kernels['D'].shape[0])
-        G, b = random_qp_problems(step, 21, seed=0)
+                                               N_TILES * 128 // M, seed=1,
+                                               M=M),
+                   1e-3, DEFAULT_AS_SOLVER_KW, kernels['D'].shape[0],
+                   (model, kernels, htable))
+        G, b = random_qp_problems(512, 21, seed=0)
         yield ('dense', torch.from_numpy(G).cuda(),
-               torch.from_numpy(b).cuda(), 4.0, DENSE_AS_SOLVER_KW, None)
+               torch.from_numpy(b).cuda(), 4.0, DENSE_AS_SOLVER_KW, None,
+               None)
 
     worst, times = 0.0, None
-    for name, G, b, lam2, kw, n_perp in cases():
+    for name, G, b, lam2, kw, n_perp, fw in cases():
+        step = step_main if n_perp is not None else G.shape[0]
         x_k = run(nneg_qp_tiles, G, b, lam2, kw)
         x_t, tails = run_twin(G, b, lam2, kw)
         torch.cuda.synchronize()
@@ -755,6 +799,14 @@ def phase_qp_vs_twin(scheme, tmp):
                 f'{work["flops"]:.4g} FLOP ({per_voxel:.1f} matvecs a '
                 f'voxel): bound {bd[0]:.4f} ms ({bd[1]}), '
                 f'{bd[0] / ms:.2%} of it reached')
+            runs = {M: (lambda: nneg_qp_tiles(*first, None, 0.0, lam2, **kw),
+                        step)}
+            if M != 128:
+                at128 = freewater_tile_inputs(*fw, 'cuda', 512, seed=1)
+                runs[128] = (lambda: nneg_qp_tiles(*at128, None, 0.0, lam2,
+                                                   **kw), 512)
+            width_turns('K2 (FreeWater Human)', runs)
+            del runs
         del G, b, x_k, x_t
     return max(worst, phase_qp_edges()), times
 
@@ -793,6 +845,7 @@ def phase_fw_main_path(study, lut_true, aniso):
     check(launches > 0, 'the FreeWater path never launched the tile QP')
     check(ev.model._last_fit_timers['staged_shared'] == 1,
           "the tile driver did not gather from the facade's upload")
+    width = resolved_width(ev, 'FreeWater', launches)
     agree_all = direction_agreement(ev, lut_true)
     agree = direction_agreement(ev, lut_true, aniso)
     log(f'DTI directions (card): LUT direction of the true one on '
@@ -824,7 +877,9 @@ def phase_fw_main_path(study, lut_true, aniso):
         f'median {med:.3g} p95 {p95:.3g} max {mx:.3g}')
     check(med < FW_AUDIT_MEDIAN and p95 < FW_AUDIT_P95 and mx < FW_AUDIT_MAX,
           'FreeWater oracle audit outside its bounds')
-    return launches, maps.astype(np.float64)
+    against_128(ev, maps, 'FreeWater', [('FiberVolume, FW', slice(None),
+                                         QP_BOUNDS['Human'])])
+    return launches, maps.astype(np.float64), width
 
 
 def phase_loc_probe():
@@ -878,8 +933,73 @@ def map_err(a, b):
     return float(np.median(e)), float(np.percentile(e, 95)), float(e.max())
 
 
+def resolved_width(ev, what, launches):
+    """Logs the width and chunking the fit of ``ev`` resolved and checks
+    that the kernel launched once a chunk; returns (width, chunk tiles)."""
+    t = ev.model._last_fit_timers
+    log(f'{what}: auto width {t["tile_size"]} voxels a tile, chunks of '
+        f'{t["chunk_tiles"]} tiles, {t["n_chunks"]} chunks; launches '
+        f'{launches}')
+    check(launches == t['n_chunks'],
+          f'{what}: {launches} launches for {t["n_chunks"]} chunks')
+    return t['tile_size'], t['chunk_tiles']
+
+
+def against_128(ev, maps, what, bounds):
+    """The fit of ``ev`` again at 128 voxels a tile, held against its maps
+    ``maps`` at the resolved width: ``bounds`` lists (name, map columns,
+    (median, p95, max or None)).  Leaves ``tile_size`` at 'auto' and
+    ev.RESULTS at the 128-wide maps."""
+    t_auto = dict(ev.model._last_fit_timers)
+    if t_auto['tile_size'] == 128:
+        log(f'{what}: the resolved width is 128; nothing to hold it against')
+        return
+    ev.set_config('tile_size', 128)
+    try:
+        t0 = time.time()
+        ev.fit()
+        fit_s = time.time() - t0
+    finally:
+        ev.set_config('tile_size', 'auto')
+    t = ev.model._last_fit_timers
+    at128 = ev.RESULTS['MAPs'][ev.niiMASK_img == 1]
+    same = np.array_equal(at128, maps)
+    for name, cols, bd in bounds:
+        got = map_err(maps[:, cols], at128[:, cols])
+        log(f'{what}: {t_auto["tile_size"]} voxels a tile against 128, '
+            f'{name}: median {got[0]:.3g} p95 {got[1]:.3g} max {got[2]:.3g}'
+            f' (bit for bit: {same})')
+        check(got[0] < bd[0] and got[1] < bd[1]
+              and (bd[2] is None or got[2] < bd[2]),
+              f'{what}: the maps at {t_auto["tile_size"]} voxels a tile '
+              f'disagree with those at 128 ({name})')
+    log(f'{what}: device wait {t_auto["device_s"]:.4f} s at '
+        f'{t_auto["tile_size"]} voxels a tile ({t_auto["n_chunks"]} chunks), '
+        f'{t["device_s"]:.4f} s at 128 ({t["n_chunks"]} chunks; that fit '
+        f'{fit_s:.3f} s with its plan and staging)')
+
+
+def host_untile_check(ev, maps, what):
+    """The fit of ``ev`` again over a one-card ``make_mesh()``, which
+    copies each chunk's outputs to the host and untiles them there: its
+    maps equal the gathered fit's ``maps`` (written in voxel order on the
+    card) bit for bit."""
+    from amico_tpu_torch.parallel import make_mesh
+    ev.set_config('mesh', make_mesh())
+    try:
+        ev.fit()
+    finally:
+        ev.set_config('mesh', None)
+    t = ev.model._last_fit_timers
+    check(np.array_equal(ev.RESULTS['MAPs'][ev.niiMASK_img == 1], maps),
+          f'{what}: the host untile\'s maps differ from the device\'s')
+    log(f'{what}: the host untile (a one-card mesh, {t["tile_size"]} voxels '
+        f'a tile: pull {t["pull_s"]:.4f} s, untile {t["untile_s"]:.4f} s) '
+        'gives the gathered fit\'s maps bit for bit')
+
+
 def phase_czb_main_path(study, lut_true, aniso):
-    """CylinderZeppelinBall with backend='auto' (the stagewise solver);
+    """CylinderZeppelinBall with backend='xla' (the stagewise solver);
     returns the Evaluation and its masked maps."""
     import amico_tpu_torch
     from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
@@ -892,15 +1012,16 @@ def phase_czb_main_path(study, lut_true, aniso):
     ev.load_data(dwi_filename='DWI.nii', scheme_filename='DWI.scheme')
     check(ev.scheme.version == 1, 'the scheme was not read as VERSION: 1')
     ev.set_model('CylinderZeppelinBall')
-    check(ev.model._solver_backend() == 'xla',
-          "backend 'auto' did not resolve to the stagewise solver")
+    ev.set_solver(backend='xla')
+    check(ev.model._solver_backend('cuda') == 'xla',
+          "backend 'xla' did not resolve to the stagewise solver")
     ev.generate_kernels(ndirs=500)
     ev.load_kernels()
     t_fit = time.time()
     ev.fit()
     fit_s = time.time() - t_fit
     ev.save_results()
-    log(f'CZB main path (auto = stagewise): {time.time() - t0:.2f} s end to '
+    log(f'CZB main path (xla = stagewise): {time.time() - t0:.2f} s end to '
         f'end, first fit {fit_s:.3f} s; launches: tile QP '
         f'{nneg_qp_tiles.launches}, fused NODDI {noddi_fused_tiles.launches}')
     n_vox = int(np.count_nonzero(ev.niiMASK_img == 1))
@@ -952,47 +1073,59 @@ def phase_czb_main_path(study, lut_true, aniso):
 
 
 def phase_czb_pallas(ev, maps_auto):
-    """The same subject with backend='pallas' (K2), held against the
-    stagewise run; then K2, its twin and the stagewise solver on 512 CZB
-    tiles.  Returns K2's launch count, the fit times and the tiles'
-    agreement and times."""
+    """The same subject with backend='auto', which on the card is K2 at its
+    resolved width: held against the stagewise run, the oracle, a fit at
+    128 voxels a tile and the host untile; then K2, its twin and the
+    stagewise solver on one launch of CZB tiles of that width."""
     import torch
-    from amico_tpu_torch.models.base import (DEFAULT_TILE_SIZE,
-                                             DEFAULT_VOXELS_PER_CHUNK,
-                                             DENSE_AS_SOLVER_KW)
+    from amico_tpu_torch.models.base import DENSE_AS_SOLVER_KW
     from amico_tpu_torch.models.cylinder_zeppelin_ball import czb_estimates
     from amico_tpu_torch.ops.cuda_qp import (nneg_qp_tiles,
                                              nneg_qp_tiles_torch,
                                              noddi_fused_tiles)
     from amico_tpu_torch.ops.loc_probe import loc_probe
     from amico_tpu_torch.ops.solvers import nneg_qp_batch
-    from amico_tpu_torch.testing import czb_tile_inputs, qp_agreement, qp_tail
+    from amico_tpu_torch.testing import (czb_oracle_audit, czb_tile_inputs,
+                                         qp_agreement, qp_tail, solve_work)
     n_vox = maps_auto.shape[0]
     nneg_qp_tiles.launches = noddi_fused_tiles.launches = 0
     loc_probe.launches = 0
-    ev.set_solver(backend='pallas')
-    check(ev.model._solver_backend() == 'pallas', 'backend is not pallas')
+    ev.set_solver()
+    check(ev.model._solver_backend('cuda') == 'pallas',
+          "backend 'auto' did not resolve to the tile QP on the card")
     t0 = time.time()
     ev.fit()
     fit_s = time.time() - t0
     launches = nneg_qp_tiles.launches
-    log(f'CZB pallas first fit: {fit_s:.3f} s = {n_vox / fit_s:.0f} '
+    log(f'CZB auto (K2) first fit: {fit_s:.3f} s = {n_vox / fit_s:.0f} '
         f'voxels/s; tile QP launches {launches}; engine: ' + json.dumps(
             {k: round(v, 4) for k, v in ev.model._last_fit_timers.items()}))
-    check(launches > 0, 'the CZB pallas fit never launched the tile QP')
-    maps = ev.RESULTS['MAPs'][ev.niiMASK_img == 1]
-    check(bool(np.isfinite(maps).all()), 'pallas maps not finite')
+    check(launches > 0, 'the CZB auto fit never launched the tile QP')
+    M, step = resolved_width(ev, 'CZB auto (K2)', launches)
+    maps = ev.RESULTS['MAPs'][ev.niiMASK_img == 1].copy()
+    check(bool(np.isfinite(maps).all()), 'K2 maps not finite')
     for i, k in enumerate('va'):
         got = map_err(maps[:, i], maps_auto[:, i])
-        log(f'CZB pallas vs stagewise, {k}: median {got[0]:.3g} p95 '
+        log(f'CZB auto (K2) vs stagewise, {k}: median {got[0]:.3g} p95 '
             f'{got[1]:.3g} max {got[2]:.3g}')
         check(all(g < b for g, b in zip(got, CZB_BACKENDS[k])),
-              f'CZB pallas maps disagree with the stagewise run ({k})')
-    warm_refit(ev, nneg_qp_tiles, launches, 'CZB pallas')
+              f'CZB K2 maps disagree with the stagewise run ({k})')
+    warm_refit(ev, nneg_qp_tiles, launches, 'CZB auto (K2)')
+    err = czb_oracle_audit(ev, n=1000, seed=0)
+    stats = {k: map_err(err[:, i], 0.0) for i, k in enumerate('va')}
+    log('CZB auto (K2) oracle audit (1000 voxels): '
+        + ', '.join(f'{k} median {m:.3g} p95 {p:.3g} max {x:.3g}'
+                    for k, (m, p, x) in stats.items()))
+    for k, got in stats.items():
+        check(all(g < b for g, b in zip(got, CZB_AUDIT[k])),
+              f'CZB K2 oracle audit of {k} outside its bounds')
+    host_untile_check(ev, maps, 'CZB auto (K2)')
+    against_128(ev, maps, 'CZB auto (K2)',
+                [(k, slice(i, i + 1), CZB_BACKENDS[k])
+                 for i, k in enumerate('va')])
 
-    step = DEFAULT_VOXELS_PER_CHUNK // DEFAULT_TILE_SIZE
     G, b, L = czb_tile_inputs(ev.model, ev.KERNELS, ev.htable, 'cuda', step,
-                              seed=1)
+                              seed=1, M=M)
     kw = DENSE_AS_SOLVER_KW
     Rs = torch.as_tensor(ev.model.Rs, dtype=torch.float32, device='cuda')
 
@@ -1030,9 +1163,13 @@ def phase_czb_pallas(ev, maps_auto):
              'twin': cuda_ms(lambda: nneg_qp_tiles_torch(G, b, None, 0.0, 4.0,
                                                          **kw), 2),
              'stagewise': cuda_ms(stagewise, 2)}
-    log(f'CZB tiles ({step} x 128 voxels, n = 26): K2 {times["k2"]:.3f} ms, '
+    _, work = solve_work(nneg_qp_tiles_torch, G, b, None, 0.0, 4.0, **kw)
+    bd = bound(2 * nbytes(b) + nbytes(G), work['flops'])
+    log(f'CZB tiles ({step} x {M} voxels, n = 26): K2 {times["k2"]:.3f} ms, '
         f'twin {times["twin"]:.3f} ms, stagewise {times["stagewise"]:.3f} ms '
-        'per call (CUDA events)')
+        f'per call (CUDA events); least work {work["flops"]:.4g} FLOP: '
+        f'bound {bd[0]:.4f} ms ({bd[1]}), {bd[0] / times["k2"]:.2%} of it '
+        'reached')
     kw_off = dict(kw, converge=False)
     log_tail('CZB', [tail], (
         lambda: nneg_qp_tiles(G, b, None, 0.0, 4.0, **kw),
@@ -1354,8 +1491,7 @@ def phase_crash_resume(study, tmp, sweep_maps):
     log(f'13c: crashed after 2 of {n_chunks} chunks, checkpoint at '
         f'done_until {done_until} tiles; the rerun ran {resumed} chunks in '
         f'{resume_s:.3f} s')
-    from amico_tpu_torch.models.base import DEFAULT_VOXELS_PER_CHUNK
-    check(done_until == 2 * (DEFAULT_VOXELS_PER_CHUNK // 128)
+    check(done_until == 2 * ev.model._last_fit_timers['chunk_tiles']
           and resumed == n_chunks - 2,
           'the rerun did not resume from done_until')
     check(not os.path.exists(ck), 'the checkpoint was not deleted')
@@ -1812,20 +1948,18 @@ def main():
         _, kernels, htable = demo_noddi(scheme, small=False,
                                         kernels_dir=os.path.join(tmp, 'k'))
         log(f'full-grid kernels: {time.time() - t0:.1f} s')
-        max_err, (ms, plain_ms, bound_ms, bound_by), k1a_args = \
-            phase_kernel_vs_twin(scheme, kernels, htable)
-        phase_k1a(k1a_args, kernels)
-        del k1a_args
         study = os.path.join(tmp, 'study')
         t0 = time.time()
         y, _, lut_true = demo_voxels(N_VOXELS, kernels, htable, seed=7)
         write_demo_subject(os.path.join(study, 'subj'), scheme, y, VOL_DIM)
         del y
         log(f'subject written: {time.time() - t0:.1f} s')
-        launches, noddi_maps = phase_main_path(study, lut_true)
+        launches, noddi_maps, width = phase_main_path(study, lut_true)
         noddi_study, noddi_lut_true = study, lut_true
-        qp_err, (qp_ms, qp_plain_ms, qp_bound_ms, qp_bound_by) = \
-            phase_qp_vs_twin(scheme, tmp)
+        max_err, (ms, plain_ms, bound_ms, bound_by), k1a_args = \
+            phase_kernel_vs_twin(scheme, kernels, htable, *width)
+        phase_k1a(k1a_args, kernels)
+        del k1a_args
         model, fw_kernels, htable = demo_freewater(
             scheme, 'Human', os.path.join(tmp, 'fw_Human'))
         study = os.path.join(tmp, 'study_fw')
@@ -1837,8 +1971,11 @@ def main():
         write_demo_subject(os.path.join(study, 'subj'), scheme, y, VOL_DIM)
         del y, W
         log(f'FreeWater subject written: {time.time() - t0:.1f} s')
-        qp_launches, fw_maps = phase_fw_main_path(study, lut_true, aniso)
+        qp_launches, fw_maps, fw_width = phase_fw_main_path(study, lut_true,
+                                                            aniso)
         fw_study = study
+        qp_err, (qp_ms, qp_plain_ms, qp_bound_ms, qp_bound_by) = \
+            phase_qp_vs_twin(scheme, tmp, *fw_width)
         t1_launches, t1_err, (t1_ms, t1_plain_ms, t1_lib_ms, t1_bound_ms,
                               t1_bound_by) = phase_loc_probe()
         t0 = time.time()

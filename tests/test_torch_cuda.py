@@ -529,6 +529,54 @@ def test_second_stream_waits_for_the_constants(freewater, monkeypatch):
     assert np.array_equal(two['estimates'], one['estimates'])
 
 
+def test_device_untile_waits_for_its_chunk(freewater, monkeypatch):
+    """Gathered on one card, each chunk's outputs are written in voxel order
+    on the chunk's own stream, after its work, and copied to the host after
+    the last chunk.  Here every chunk's outputs are poisoned, then written
+    back after a long sleep of the chunk's stream: the two-stream maps
+    still equal the one-stream ones.  Written on the current stream (which
+    does not wait for the second), or pulled before the streams are done,
+    they would hold the poison."""
+    from amico_tpu_torch.models import base
+    from amico_tpu_torch.testing import freewater_voxels
+    model, kernels, htable = freewater['Human']
+    y, DIRs, _, _ = freewater_voxels(6000, kernels, htable, seed=4)
+    run = model._run_tiled_fit
+
+    def late(evaluation, chunk_fn_for, *args):
+        def late_for(device):
+            fit_chunk = chunk_fn_for(device)
+
+            def chunk(*a):
+                res = fit_chunk(*a)
+                kept = {k: v.clone() for k, v in res.items()}
+                for v in res.values():
+                    v.fill_(float('nan'))
+                torch.cuda._sleep(1 << 28)
+                for k, v in res.items():
+                    v.copy_(kept[k])
+                return res
+            return chunk
+        return run(evaluation, late_for, *args)
+
+    class Ctx:
+        def __init__(s):
+            s.y, s.DIRs, s.htable, s.KERNELS = y, DIRs, htable, kernels
+
+        def get_config(s, k):
+            return {'device': 'cuda', 'voxels_per_chunk': 1024,
+                    'doSaveCorrectedDWI': True}.get(k)
+
+    monkeypatch.setattr(model, '_run_tiled_fit', late)
+    two = model.fit(Ctx())
+    assert model._last_fit_timers['n_chunks'] >= 2
+    monkeypatch.setattr(base, '_chunk_streams', lambda device: [None])
+    one = model.fit(Ctx())
+    for k in one:
+        assert np.isfinite(one[k]).all()
+        assert np.array_equal(two[k], one[k]), k
+
+
 def test_mesh_fit_matches_one_card(freewater):
     """make_mesh() over the visible cards: whole chunks go to the cards
     round robin, and the maps equal the one-card fit's bit for bit."""
@@ -682,8 +730,8 @@ def test_k2_matches_stagewise_on_czb_tiles(czb):
 
 
 def test_czb_fit_on_cuda_both_backends(czb):
-    """'auto' runs the stagewise solver (no kernel launch), 'pallas' K2;
-    their maps agree."""
+    """'xla' runs the stagewise solver (no kernel launch), 'pallas' K2, and
+    'auto' resolves to K2 on the card; their maps agree."""
     from amico_tpu_torch.testing import czb_voxels
     model, kernels, htable = czb
     y, DIRs, _, _ = czb_voxels(2000, kernels, htable, seed=9)
@@ -696,15 +744,16 @@ def test_czb_fit_on_cuda_both_backends(czb):
             return {'device': 'cuda'}.get(k)
 
     est = {}
-    for backend in ('auto', 'pallas'):
+    for backend in ('xla', 'pallas', 'auto'):
         model.set_solver(backend=backend)
         before = nneg_qp_tiles.launches
         est[backend] = model.fit(Ctx())['estimates']
         launched = nneg_qp_tiles.launches - before
-        assert (launched > 0) == (backend == 'pallas')
+        assert (launched > 0) == (backend != 'xla')
         assert est[backend].shape == (2000, 3)
         assert np.isfinite(est[backend]).all()
     model.set_solver()
-    d = np.abs(est['auto'] - est['pallas'])
+    assert np.array_equal(est['auto'], est['pallas'])
+    d = np.abs(est['xla'] - est['pallas'])
     assert np.median(d[:, 0]) < 1e-5 and d[:, 0].max() < 1e-3
     assert np.median(d[:, 1]) < 1e-4 and d[:, 1].max() < 1e-2
