@@ -122,7 +122,29 @@ Phases; any failure exits non-zero and prints no result line:
       written maps against phase 4's, bit for bit (else within K1's
       agreement bounds, with the reason logged); rank 1 writes nothing;
       each rank's fit time, gather time (and the same gather again after a
-      barrier: the transfer alone) and K1 launches.
+      barrier: the transfer alone) and K1 launches;
+15. edges and options on the card, each fit through the facade with
+   backend and tile_size 'auto', K1's or K2's launches counted in every
+   case of a-d (> 0) and each case's wall time logged:
+   a. an empty mask (3x3x2) for NODDI (K1; with each DTI_fit_method, so
+      the DTI runs on an empty batch on the card), FreeWater and CZB (K2):
+      fit and save_results finish, every map is 0, the files are written,
+      the resolved width is logged;
+   b. a single voxel (tests/test_edge_cases.py:52's subject; CZB's on its
+      protocol) for the same three models: finite maps, against the port's
+      CPU fit of the same subject at K1's and K2's agreement bounds;
+   c. a 3x3x2 subject with a NaN and an Inf sample and a dead b0 voxel, b0
+      rows at b=5 under b0_thr=10, replace_bad_voxels=0, doKeepb0Intact
+      and doSaveCorrectedDWI, with b0_min_signal=0.1 and with doMergeB0,
+      for the same three models: maps and corrected DWI against the CPU's
+      (the DWI within EDGE_DWI_RTOL);
+   d. phase 4's subject with a labeled mask (a 2 on every other voxel):
+      only the 1s are fitted, their maps equal phase 4's bit for bit (else
+      within K1's agreement bounds, with the reason logged), the 2s' are 0;
+   e. the three examples (``python -m amico_tpu_torch.examples.<name>``)
+      as subprocesses at their own sizes on the card, the NODDI demo also
+      with ``--device cpu`` beside them: exit 0, maps written and finite,
+      the demo's card maps against its CPU maps at K1's agreement bounds.
 
 The kernels are built in phase 2; every launch count is read from the main
 path's run alone (counts set to 0 just before it), and the kernels are held
@@ -271,6 +293,12 @@ DTI_CPU_MEDIAN, DTI_CPU_P99 = 0.05, 0.5
 # sets the spread): |card - cpu| <= rtol |cpu| + atol sigma
 SNR = 20.0
 DEBIAS_RTOL, DEBIAS_ATOL = 1e-4, 2e-3
+# phase 15, edges and options: the card's fits of tiny subjects against the
+# port's CPU fits of the same subjects, maps at K1's and K2's agreement
+# bounds above (CZB: K2 on the card against the stagewise solver on the
+# CPU, CZB_BACKENDS), the corrected DWI within this share of its largest
+# value (the port against the JAX package on the CPU read 5.6e-4 relative)
+EDGE_DWI_RTOL = 1e-3
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM3
 # bytes/s and float32 FLOP/s outside the tensor cores (the kernels compute
 # in float32 on the CUDA cores)
@@ -1316,9 +1344,10 @@ def load_maps(out_dir, names=NODDI_MAPS):
             .get_fdata(np.float32) for n in names}
 
 
-def maps_equal_or_within_k1(got, ref, what):
-    """Bit for bit, or else (logged with the reason) within K1's agreement
-    bounds on every map."""
+def maps_equal_or_within_k1(got, ref, what,
+                            why='the same inputs through another process'):
+    """Bit for bit, or else (logged with the reason ``why``) within K1's
+    agreement bounds on every map."""
     if all(np.array_equal(got[k], ref[k]) for k in ref):
         log(f'{what}: maps equal bit for bit')
         return
@@ -1329,29 +1358,37 @@ def maps_equal_or_within_k1(got, ref, what):
         check(np.median(e) < KERNEL_MAP_MEDIAN
               and np.percentile(e, 95) < KERNEL_MAP_P95,
               f'{what}: {k} outside K1\'s agreement bounds')
-    log(f'{what}: maps not bit-equal (the same inputs through another '
-        'process); within K1\'s agreement bounds')
+    log(f'{what}: maps not bit-equal ({why}); within K1\'s agreement '
+        'bounds')
 
 
-def run_processes(cmds, logs, timeout):
+def run_processes(cmds, logs, timeout, seconds=None):
     """Run ``cmds`` side by side, each writing to its log file; fail with
     the log's tail if one exits non-zero or outlasts ``timeout`` seconds.
-    Every process is ended before this returns."""
+    Every process is ended before this returns; ``seconds``, a list, gets
+    each one's wall time."""
     procs = []
+    t0 = time.time()
     try:
         for cmd, path in zip(cmds, logs):
             with open(path, 'w') as f:
                 procs.append(subprocess.Popen(
                     cmd, stdout=f, stderr=subprocess.STDOUT,
                     cwd=os.path.dirname(os.path.abspath(__file__))))
-        deadline = time.time() + timeout
-        rcs = [p.wait(timeout=max(1.0, deadline - time.time()))
-               for p in procs]
+        ends = [None] * len(procs)
+        while None in ends and time.time() < t0 + timeout:
+            for i, p in enumerate(procs):
+                if ends[i] is None and p.poll() is not None:
+                    ends[i] = time.time() - t0
+            time.sleep(0.1)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    rcs = [p.returncode for p in procs]
+    if seconds is not None:
+        seconds[:] = ends
     tails = []
     for rc, path, cmd in zip(rcs, logs, cmds):
         with open(path) as f:
@@ -1923,6 +1960,243 @@ def phase_mesh_dist(noddi_study, fw_study, tmp, noddi_maps, fw_maps,
     log(f'14: mesh and multi-process {time.time() - t_phase:.1f} s')
 
 
+EDGE_MODELS = ('NODDI', 'FreeWater', 'CylinderZeppelinBall')
+EDGE_MAPS = ('NDI', 'ODI', 'FWF'), ('FiberVolume', 'FW'), ('v', 'a', 'd')
+
+
+def edge_scheme(model, b0=0.0):
+    """tests/test_edge_cases.py's protocol (2 b0 + 24 @ b=1000 + 24 @
+    b=2500, VERSION: BVECTOR) with its b0 rows at b = ``b0``, or for
+    CylinderZeppelinBall the JAX bench's VERSION: 1 protocol."""
+    from amico_tpu_torch.io.scheme import Scheme
+    from amico_tpu_torch.ops.sphere import fibonacci_hemisphere
+    from amico_tpu_torch.testing import czb_scheme
+    if model == 'CylinderZeppelinBall':
+        return czb_scheme()
+    g = fibonacci_hemisphere(24)
+    return Scheme(np.vstack([np.full((2, 4), [1.0, 0.0, 0.0, b0]),
+                             np.c_[g, np.full(24, 1000.0)],
+                             np.c_[g, np.full(24, 2500.0)]]))
+
+
+def edge_subject(subj, scheme, dim, seed, mask=None, bad=False):
+    """A random subject in the JAX edge tests' style: DWIs at 0.3-0.8 of a
+    unit b0, scaled by 1000; ``mask`` written as mask.nii.gz; ``bad`` puts
+    a NaN and an Inf sample and a dead b0 voxel in."""
+    from amico_tpu_torch.io import nifti
+    from amico_tpu_torch.testing import write_demo_subject
+    rng = np.random.RandomState(seed)
+    n = int(np.prod(dim))
+    y = 0.3 + 0.5 * rng.rand(n, scheme.nS)
+    y[:, scheme.b0_idx] = 1.0
+    if bad:
+        y[0, scheme.dwi_idx[3]] = np.nan
+        y[n // 2, scheme.dwi_idx[5]] = np.inf
+        y[n - 1, scheme.b0_idx] = 0.0
+    write_demo_subject(subj, scheme, y, dim)
+    if mask is not None:
+        nifti.save(nifti.Nifti1Image(mask.astype(np.uint8),
+                                     np.diag([2.0, 2.0, 2.0, 1.0])),
+                   os.path.join(subj, 'mask.nii.gz'))
+
+
+def edge_fit(study, subject, model, device, config=None, load=None,
+             counter=None, what=''):
+    """``model`` through the facade on ``device`` (backend and tile_size
+    'auto'); on the card, with ``counter`` (K1 or K2) launched at least
+    once.  Returns the Evaluation."""
+    import amico_tpu_torch
+    if counter is not None:
+        counter.launches = 0
+    t0 = time.time()
+    ev = amico_tpu_torch.Evaluation(study, subject, device=device)
+    for k, v in (config or {}).items():
+        ev.set_config(k, v)
+    ev.load_data('DWI.nii', 'DWI.scheme', **(load or {}))
+    ev.set_model(model)
+    ev.generate_kernels(ndirs=500)
+    ev.load_kernels()
+    ev.fit()
+    t = ev.model._last_fit_timers
+    log(f'15{what} {model} on {device}: {time.time() - t0:.2f} s; '
+        f'{int((ev.niiMASK_img == 1).sum())} voxels, width '
+        f'{t["tile_size"]}, {t["n_chunks"]} chunks'
+        + ('' if counter is None else f', launches {counter.launches}'))
+    if counter is not None:
+        check(counter.launches > 0,
+              f'15{what} {model}: the kernel was never launched')
+    return ev
+
+
+def edge_agree(card, cpu, model, what):
+    """The card's maps (and corrected DWI) against the CPU's: K1's
+    bounds (NODDI), K2's (FreeWater), K2 against the stagewise solver
+    (CZB's v and a)."""
+    fit = card.niiMASK_img == 1
+    got, ref = card.RESULTS['MAPs'][fit], cpu.RESULTS['MAPs'][fit]
+    check(bool(np.isfinite(got).all()), f'15{what} {model}: maps not finite')
+    if model == 'NODDI':
+        cases = [('NDI, ODI, FWF', slice(None),
+                  (KERNEL_MAP_MEDIAN, KERNEL_MAP_P95, np.inf))]
+    elif model == 'FreeWater':
+        cases = [('FiberVolume, FW', slice(None), QP_BOUNDS['Human'])]
+    else:
+        cases = [(k, i, CZB_BACKENDS[k]) for i, k in enumerate('va')]
+    for name, cols, bd in cases:
+        e = map_err(got[:, cols], ref[:, cols])
+        log(f'15{what} {model} card vs CPU, {name}: median {e[0]:.3g} p95 '
+            f'{e[1]:.3g} max {e[2]:.3g}')
+        check(e[0] < bd[0] and e[1] < bd[1] and e[2] < bd[2],
+              f'15{what} {model}: the card disagrees with the CPU ({name})')
+    if 'DWI_corrected' in cpu.RESULTS:
+        a = card.RESULTS['DWI_corrected'].astype(np.float64)
+        b = cpu.RESULTS['DWI_corrected'].astype(np.float64)
+        rel = np.abs(a - b).max() / np.abs(b).max()
+        log(f'15{what} {model} corrected DWI card vs CPU: max '
+            f'{np.abs(a - b).max():.3g} ({rel:.3g} of the largest value)')
+        check(bool(np.isfinite(a).all()) and rel < EDGE_DWI_RTOL,
+              f'15{what} {model}: the corrected DWI disagrees')
+
+
+def phase_edges_tiny(base):
+    """15a-c: the empty mask, a single voxel and the options on tiny
+    subjects, for NODDI (K1), FreeWater and CZB (K2); each subject 's' in a
+    study of its own under ``base`` (a study's LUT serves one scheme)."""
+    from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, noddi_fused_tiles
+    counters = {'NODDI': noddi_fused_tiles, 'FreeWater': nneg_qp_tiles,
+                'CylinderZeppelinBall': nneg_qp_tiles}
+    # a. an empty mask: every map 0, save_results writes the maps; NODDI
+    # with each DTI method (the DTI on an empty batch on the card)
+    for model, names in zip(EDGE_MODELS, EDGE_MAPS):
+        study = os.path.join(base, f'empty_{model}')
+        edge_subject(os.path.join(study, 's'), edge_scheme(model),
+                     (3, 3, 2), 0, mask=np.zeros((3, 3, 2)))
+        for method in (('OLS', 'WLS', 'NLLS', 'RESTORE')
+                       if model == 'NODDI' else ('OLS',)):
+            ev = edge_fit(study, 's', model, 'cuda',
+                          {'DTI_fit_method': method},
+                          {'mask_filename': 'mask.nii.gz'}, counters[model],
+                          f'a ({method})')
+            check(ev.y.shape[0] == 0, f'15a {model}: voxels fitted')
+            check(bool((ev.RESULTS['MAPs'] == 0).all()),
+                  f'15a {model} ({method}): a map is not 0')
+            ev.save_results()
+            out = os.path.join(study, 's', 'AMICO', model)
+            for name in names + ('dir',):
+                check(os.path.isfile(os.path.join(out, f'fit_{name}.nii.gz')),
+                      f'15a {model}: fit_{name}.nii.gz not written')
+    # b. a single voxel (tests/test_edge_cases.py:52's 1 b0 + 24 @ b=1000
+    # for NODDI and FreeWater), the card against the CPU
+    from amico_tpu_torch.io.scheme import Scheme
+    from amico_tpu_torch.ops.sphere import fibonacci_hemisphere
+    g = fibonacci_hemisphere(24)
+    one = Scheme(np.vstack([np.zeros((1, 4)), np.c_[g, np.full(24, 1000.0)]]))
+    for model in EDGE_MODELS:
+        study = os.path.join(base, f'one_{model}')
+        edge_subject(os.path.join(study, 's'),
+                     edge_scheme(model) if model == 'CylinderZeppelinBall'
+                     else one, (1, 1, 1), 1)
+        card = edge_fit(study, 's', model, 'cuda', counter=counters[model],
+                        what='b')
+        cpu = edge_fit(study, 's', model, 'cpu', what='b')
+        edge_agree(card, cpu, model, 'b')
+    # c. the options on a 3x3x2 subject with a NaN and an Inf sample and a
+    # dead b0 voxel, b0 rows at b=5 (CZB: b=0) under b0_thr=10:
+    # replace_bad_voxels=0, doKeepb0Intact and doSaveCorrectedDWI, then
+    # b0_min_signal=0.1 or doMergeB0
+    load = {'b0_thr': 10, 'replace_bad_voxels': 0.0}
+    for model in EDGE_MODELS:
+        study = os.path.join(base, f'opts_{model}')
+        edge_subject(os.path.join(study, 's'), edge_scheme(model, 5.0),
+                     (3, 3, 2), 2, bad=True)
+        for extra_cfg, extra_load in (({}, {'b0_min_signal': 0.1}),
+                                      ({'doMergeB0': True}, {})):
+            cfg = dict({'doKeepb0Intact': True, 'doSaveCorrectedDWI': True},
+                       **extra_cfg)
+            what = 'c (' + ', '.join(list(extra_cfg) + list(extra_load)) + ')'
+            card = edge_fit(study, 's', model, 'cuda', cfg,
+                            dict(load, **extra_load), counters[model], what)
+            cpu = edge_fit(study, 's', model, 'cpu', cfg,
+                           dict(load, **extra_load), what=what)
+            if model != 'CylinderZeppelinBall':
+                check(card.scheme.b0_count == 2,
+                      f'15{what} {model}: b0_thr=10 missed the b = 5 rows')
+            edge_agree(card, cpu, model, what)
+
+
+def phase_labeled(study, maps_ref):
+    """15d: phase 4's subject with a labeled mask, a 2 on every other voxel
+    of phase 4's mask: only the 1s are fitted, their maps equal phase 4's
+    bit for bit (else, with the reason logged, within K1's agreement
+    bounds) and the 2s' are 0."""
+    from amico_tpu_torch.io import nifti
+    from amico_tpu_torch.ops.cuda_qp import noddi_fused_tiles
+    mask = np.ones(VOL_DIM, np.uint8)
+    mask.reshape(-1)[1::2] = 2
+    nifti.save(nifti.Nifti1Image(mask, np.diag([2.0, 2.0, 2.0, 1.0])),
+               os.path.join(study, 'subj', 'mask_labeled.nii.gz'))
+    ev = edge_fit(study, 'subj', 'NODDI', 'cuda',
+                  load={'mask_filename': 'mask_labeled.nii.gz'},
+                  counter=noddi_fused_tiles, what='d')
+    fit = mask == 1
+    check(ev.y.shape[0] == int(fit.sum()) == N_VOXELS // 2,
+          f'15d: {ev.y.shape[0]} voxels fitted, {int(fit.sum())} 1s')
+    maps = ev.RESULTS['MAPs']
+    check(bool((maps[~fit] == 0).all()), '15d: a map is not 0 on a 2')
+    maps_equal_or_within_k1(
+        {'NDI, ODI, FWF': maps[fit].astype(np.float64)},
+        {'NDI, ODI, FWF': maps_ref.reshape(VOL_DIM + (3,))[fit]},
+        '15d: the 1s against phase 4', 'other voxels share their tiles')
+
+
+EXAMPLES = {'noddi_demo': ('subject1',), 'fsl_noddi_tutorial': ('Subject01',),
+            'sweep_multichip_demo': ('subject0', 'subject1', 'subject2')}
+
+
+def phase_examples(tmp):
+    """15e: the three examples as subprocesses at their own sizes on the
+    card, and the NODDI demo on the CPU beside them: exit code 0, maps
+    written and finite, the demo's card maps against its CPU maps within
+    K1's agreement bounds."""
+    from amico_tpu_torch.io import nifti
+    runs = [(name, 'cuda') for name in EXAMPLES] + [('noddi_demo', 'cpu')]
+    studies = {r: os.path.join(tmp, 'examples', '_'.join(r)) for r in runs}
+    cmds = [[sys.executable, '-m', f'amico_tpu_torch.examples.{name}',
+             studies[(name, dev)]] + (['--device', 'cpu'] if dev == 'cpu'
+                                      else []) for name, dev in runs]
+    logs = [studies[r] + '.log' for r in runs]
+    os.makedirs(os.path.join(tmp, 'examples'))
+    seconds = []
+    run_processes(cmds, logs, 900, seconds)
+    maps = {}
+    for (name, dev), s in zip(runs, seconds):
+        for subject in EXAMPLES[name]:
+            out = os.path.join(studies[(name, dev)], subject, 'AMICO', 'NODDI')
+            got = np.stack([nifti.load(os.path.join(out, f'fit_{m}.nii.gz'))
+                            .get_fdata() for m in ('NDI', 'ODI', 'FWF')], -1)
+            check(bool(np.isfinite(got).all()),
+                  f'15e {name} ({dev}): {subject}\'s maps not finite')
+            maps[(name, dev)] = got
+        log(f'15e {name} on {dev}: exit 0 in {s:.1f} s (side by side), '
+            f'maps of {len(EXAMPLES[name])} subject(s) of {got.shape[:3]} '
+            'written and finite')
+    e = map_err(maps[('noddi_demo', 'cuda')], maps[('noddi_demo', 'cpu')])
+    log(f'15e noddi_demo card vs CPU: median {e[0]:.3g} p95 {e[1]:.3g} max '
+        f'{e[2]:.3g}')
+    check(e[0] < KERNEL_MAP_MEDIAN and e[1] < KERNEL_MAP_P95,
+          '15e: the NODDI demo on the card disagrees with the CPU')
+
+
+def phase_edges(study, maps_ref, tmp):
+    """Phase 15, edges and options on the card."""
+    t_phase = time.time()
+    edges = os.path.join(tmp, 'edges')
+    phase_edges_tiny(edges)
+    phase_labeled(study, maps_ref)
+    phase_examples(tmp)
+    log(f'15: edges and options {time.time() - t_phase:.1f} s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2010,6 +2284,7 @@ def main():
                     kernels, htable, scheme)
         phase_mesh_dist(noddi_study, fw_study, tmp, noddi_maps, fw_maps,
                         launches, qp_launches)
+        phase_edges(noddi_study, noddi_maps, tmp)
     from amico_tpu_torch.ops import native
     check(native.available(), "the port's native host library did not load")
     loaded = sorted(m for m in sys.modules

@@ -93,7 +93,9 @@ def test_facade_runs_without_jax(study, tmp_path):
         "    amico_tpu_torch.__path__, 'amico_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "for name in ('ops.native', 'preproc', 'sweep', 'cli', '__main__'):\n"
+        "for name in ('ops.native', 'preproc', 'sweep', 'cli', '__main__',\n"
+        "             'examples.noddi_demo', 'examples.fsl_noddi_tutorial',\n"
+        "             'examples.sweep_multichip_demo'):\n"
         "    assert 'amico_tpu_torch.' + name in names, names\n"
         "from amico_tpu_torch.ops import native\n"
         "assert native.available()\n"
@@ -134,6 +136,11 @@ def test_port_and_chip_smoke_import_neither_jax_nor_amico_tpu():
     for dirpath, _, names in os.walk(os.path.join(REPO, 'amico_tpu_torch')):
         files += [os.path.join(dirpath, f) for f in names if f.endswith('.py')]
     assert len(files) > 30
+    # the examples are modules of the package, and the walk covers them
+    for name in ('__init__', 'noddi_demo', 'fsl_noddi_tutorial',
+                 'sweep_multichip_demo'):
+        assert os.path.join(REPO, 'amico_tpu_torch', 'examples',
+                            name + '.py') in files, name
     bad = [(os.path.relpath(f, REPO), name) for f in files
            for name in _imports(f)
            if name.split('.')[0] in ('jax', 'amico_tpu')]
