@@ -1,0 +1,52 @@
+"""The harness finds configurations, traffic mixes and per-layer metrics
+by name, so that a later change adds them as files alone; and the
+repository's BENCHMARK.json names only pieces that exist."""
+import json
+import os
+
+from conftest import BENCH
+from portbench import registry
+
+
+def test_new_pieces_are_found_as_files(tmp_path):
+    d = tmp_path / 'bench'
+    for sub in ('configs', 'traffic', 'metrics'):
+        (d / sub).mkdir(parents=True)
+    (d / 'configs' / 'hcp_like.json').write_text(json.dumps({'lut': 1}))
+    (d / 'traffic' / 'burst.json').write_text(json.dumps({'kind': 'refit'}))
+    (d / 'metrics' / 'fits_seen.refit.py').write_text(
+        'def read(run):\n    return run.count\n')
+    assert registry.config('hcp_like', str(d)) == {'lut': 1,
+                                                   'name': 'hcp_like'}
+    assert registry.traffic('burst', str(d))['kind'] == 'refit'
+    read = registry.metric_reader('fits_seen.refit', str(d))
+    assert read(type('R', (), {'count': 7})()) == 7
+
+
+def test_metrics_of_a_cell():
+    bench = {'end_to_end': [{'name': 'a'}, {'name': 'b', 'workloads': ['x']}],
+             'per_layer': [{'name': 'c', 'workloads': ['y']}, {'name': 'd'}]}
+    names = lambda ms: [m['name'] for m in ms]  # noqa: E731
+    assert names(registry.metrics_of(bench, 'x', False)) == ['a', 'b']
+    assert names(registry.metrics_of(bench, 'y', False)) == ['a']
+    assert names(registry.metrics_of(bench, 'y', True)) == ['c', 'd']
+
+
+def test_benchmark_json_names_existing_pieces():
+    bench = registry.benchmark()
+    root = os.path.dirname(BENCH)
+    for c in bench['configs']:
+        assert os.path.isfile(os.path.join(root, c['file']))
+        assert registry.config(c['name'])['reference'] in (
+            'noddi', 'freewater')
+    for w in bench['workloads']:
+        registry.config(w['config'])
+        assert registry.traffic(w['traffic'])['kind'] in ('refit', 'study')
+        e2e = registry.metrics_of(bench, w['name'], False)
+        layer = registry.metrics_of(bench, w['name'], True)
+        assert 'setup_s' in [m['name'] for m in e2e] and len(e2e) >= 2
+        assert layer
+        for m in layer:
+            assert m['moves'] in [e['name'] for e in e2e]
+    for m in bench['per_layer']:
+        registry.metric_reader(m['name'])
