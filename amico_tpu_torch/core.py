@@ -18,7 +18,10 @@ driver streams host-tiled chunks.  As in the JAX facade, a re-fit of the
 same loaded data reuses the masked signal, its upload and the DTI
 directions.  The Rician debias runs on the same device inside
 ``load_data``; ``profile_dir`` records the model fit with
-``torch.profiler``.  The ``mesh`` config
+``torch.profiler``.  Each stage runs in a span of ``trace`` (load_data,
+load_kernels, the fit's stage_voxels, directions, model_fit and scatter,
+save_results), from which the stage timers (``timers``,
+``last_fit_timers()``) are read.  The ``mesh`` config
 (``parallel.make_mesh``) spreads the tile driver's chunks over the cards
 of one process; ``distributed`` (after ``parallel.dist.initialize``) gives
 each process a slab of the voxels on its own card, gathers the maps on
@@ -46,6 +49,7 @@ from .utils.timers import StageTimers
 
 from . import models as _models
 from . import pipeline as _pl
+from . import trace
 from .device import DEFAULT_DEVICE, resolve_device
 from .models.base import DEFAULT_MAX_DEVICE_BYTES, _concrete
 from .parallel import dist
@@ -191,6 +195,13 @@ class Evaluation:
         return bool(self.get_config('distributed')) \
             and dist.process_count() > 1
 
+    def _stage_time(self, sp, name=None):
+        """Add a closed span's seconds to ``timers`` (the JAX facade's
+        ``StageTimers``), under ``name`` or the span's own."""
+        t = self.timers.times
+        name = name or sp.name
+        t[name] = t.get(name, 0.0) + sp.elapsed
+
     def _resolve_threads(self, key):
         v = self.get_config(key)
         if v is None:
@@ -206,6 +217,20 @@ class Evaluation:
                   mask_filename=None, b0_thr=0, b0_min_signal=0,
                   replace_bad_voxels=None):
         """Load DWI/scheme/mask, then run the preprocessing stages."""
+        with trace.span('load_data'):
+            with trace.span('nifti_read'):
+                img = self._read_inputs(dwi_filename, scheme_filename,
+                                        mask_filename, b0_thr, b0_min_signal,
+                                        replace_bad_voxels)
+            with trace.span('preprocess') as sp:
+                self.niiDWI_img = self._preprocess(img, b0_thr, b0_min_signal,
+                                                   replace_bad_voxels)
+            self._stage_time(sp)
+
+    def _read_inputs(self, dwi_filename, scheme_filename, mask_filename,
+                     b0_thr, b0_min_signal, replace_bad_voxels):
+        """Read the DWI header (its data mapped), the scheme and the mask;
+        returns the DWI's raw data."""
         LOG('\n-> Loading data:')
         tic = time.time()
         data_path = self.get_config('DATA_path')
@@ -256,10 +281,7 @@ class Evaluation:
             PRINT('\t\t- not specified')
         PRINT(f'\t\t- voxels = {np.count_nonzero(self.niiMASK_img)}')
         LOG(f'   [ {time.time() - tic:.1f} seconds ]')
-
-        with self.timers.stage('preprocess'):
-            self.niiDWI_img = self._preprocess(img, b0_thr, b0_min_signal,
-                                               replace_bad_voxels)
+        return img
 
     def _print_scheme_summary(self):
         sch = self.scheme
@@ -483,6 +505,10 @@ class Evaluation:
     # --------------------------------------------------------- load_kernels
     def load_kernels(self):
         """Project the SH-space LUT onto this subject's gradient scheme."""
+        with trace.span('load_kernels'):
+            self._load_kernels()
+
+    def _load_kernels(self):
         if self.model is None:
             ERROR('Model not set; call "set_model()" method first')
         if self.scheme is None:
@@ -490,8 +516,9 @@ class Evaluation:
         self.BLAS_nthreads = self._resolve_threads('BLAS_nthreads')
         tic = time.time()
         LOG(f'\n-> Resampling LUT for subject "{self.get_config("subject")}":')
-        idx_OUT, Ylm_OUT = _lut.aux_structures_resample(
-            self.scheme, self.get_config('lmax'))
+        with trace.span('resample_aux'):
+            idx_OUT, Ylm_OUT = _lut.aux_structures_resample(
+                self.scheme, self.get_config('lmax'))
         source = self.get_config('direction_source')
         meta_path = pjoin(self.get_config('ATOMS_path'), 'lut_meta.pickle')
         if isfile(meta_path):
@@ -506,17 +533,43 @@ class Evaluation:
                 ERROR(f'Cached kernels were built with lmax={meta.get("lmax")}'
                       f' but this session uses lmax={self.get_config("lmax")};'
                       ' call generate_kernels(regenerate=True)')
-        self.htable = _lut.load_precomputed_hash_table(
-            self.get_config('ndirs'), source)
-        with self.timers.stage('load_kernels'), self._blas_limit():
+        with trace.span('hash_table'):
+            self.htable = _lut.load_precomputed_hash_table(
+                self.get_config('ndirs'), source)
+        with trace.span('model_resample') as sp, self._blas_limit():
             self.KERNELS = self.model.resample(
                 self.get_config('ATOMS_path'), idx_OUT, Ylm_OUT,
                 self.get_config('doMergeB0'), self.get_config('ndirs'))
+        self._stage_time(sp, 'load_kernels')
         LOG(f'   [ {time.time() - tic:.1f} seconds ]')
 
     # ------------------------------------------------------------------ fit
     def fit(self):
-        """Directions + model fit + scatter back to volumes."""
+        """Directions + model fit + scatter back to volumes.  The fit's
+        spans (``trace``) give its phase timers, ``last_fit_timers()``."""
+        with trace.span('fit') as sp:
+            self._fit()
+        s = sp.seconds
+        tf = {'stage_voxels_s': s['stage_voxels'],
+              'directions_s': s['directions'],
+              'model_fit_s': s['model_fit'],
+              'gather_s': s.get('gather', 0.0),
+              'scatter_s': s['scatter'],
+              'total_s': sp.elapsed}
+        tf['unattributed_s'] = tf['total_s'] - sum(
+            v for k, v in tf.items() if k != 'total_s')
+        self._last_fit_facade_timers = tf
+
+    def last_fit_timers(self) -> dict:
+        """The last fit's phase timers, in seconds: ``'facade'`` (stage_voxels,
+        directions, model_fit, gather, scatter, total and unattributed) and
+        ``'engine'`` (the model's tile driver: plan as ``setup_s``,
+        ``dispatch_s``, ``device_s`` (the wait for the device), ``pull_s``,
+        ``untile_s``, and what the fit resolved)."""
+        return {'facade': dict(self._last_fit_facade_timers),
+                'engine': dict(self.model._last_fit_timers)}
+
+    def _fit(self):
         if self.niiDWI is None:
             ERROR('Data not loaded; call "load_data()" first')
         if self.model is None:
@@ -545,11 +598,9 @@ class Evaluation:
                       and not self.get_config('doDirectionalAverage')
                       and n_vox * int(self.niiDWI_img.shape[3]) * 4 <= budget)
 
-        # facade phase timers: staging / directions / model fit / scatter
-        tf = {}
-        t_enter = t = time.time()
         self._staged_y_ext_dev = None
-        with self.timers.stage('stage_voxels'):
+        with trace.span('stage_voxels', cached=False,
+                        uploaded=False) as stage_sp:
             # warm re-fit state, the JAX facade's: a re-fit of the same
             # loaded volume and mask (identity) reuses the masked signal,
             # so that the model's identity-keyed caches hit.  A strided
@@ -564,6 +615,7 @@ class Evaluation:
             if yc is not None and yc[0] is self.niiDWI_img \
                     and yc[1] is self.niiMASK_img and yc[2] == img_fp:
                 self.y, slab_cache = yc[3], yc[4]
+                stage_sp.attrs['cached'] = True
             else:
                 # a new signal: the old one's cached copies on the card, the
                 # facade's and the model's staged inputs, go before anything
@@ -598,75 +650,78 @@ class Evaluation:
                             [self.y.astype(np.float32, copy=False),
                              np.zeros((1, self.y.shape[1]), np.float32)])
                     copies[device] = _upload(host, device)
+                    stage_sp.attrs['uploaded'] = True
                 self._staged_y_ext_dev = (self.y, copies[device])
             else:
                 # unlike the JAX facade, a fit that does not stage keeps no
                 # copy of the signal on a device: the budget bounds what
                 # the fit holds there
                 slab_cache.pop('__y_ext_dev__', None)
-        tf['stage_voxels_s'] = time.time() - t_enter
+        self._stage_time(stage_sp)
 
         LOG(f"\n-> Estimating principal directions "
             f"({self.get_config('DTI_fit_method')}):")
-        peaks_filename = self.get_config('peaks_filename')
-        if peaks_filename is not None:
-            self.DIRs = self._load_peaks(peaks_filename, mask)
-            if dist_on:
-                self.DIRs = self.DIRs[slab]
-        elif not self.get_config('doDirectionalAverage'):
-            # the directions depend on (y, scheme, method, doMergeB0) and
-            # the device they are fitted on: a re-fit reuses them (and the
-            # tile driver's plan, keyed on their identity)
-            dkey = (self.y, self.scheme, method,
-                    bool(self.get_config('doMergeB0')), device)
-            dc = getattr(self, '_fit_dirs_cache', None)
-            if dc is not None and dc[0] is dkey[0] and dc[1] is dkey[1] \
-                    and dc[2:5] == dkey[2:]:
-                self.DIRs = dc[5]
-            else:
-                y_dti = (self._staged_y_ext_dev[1][:-1]
-                         if self._staged_y_ext_dev is not None else self.y)
-                with self.timers.stage('directions'), torch.no_grad():
-                    self.DIRs = _pl.principal_directions(
-                        y_dti, self.scheme, method, dkey[3], device=device)
-                self._fit_dirs_cache = dkey + (self.DIRs,)
-        self.set_config('dirs_precomputing_time', time.time() - t)
-        tf['directions_s'] = time.time() - t_enter - tf['stage_voxels_s']
+        with trace.span('directions', cached=False) as sp:
+            peaks_filename = self.get_config('peaks_filename')
+            if peaks_filename is not None:
+                self.DIRs = self._load_peaks(peaks_filename, mask)
+                if dist_on:
+                    self.DIRs = self.DIRs[slab]
+            elif not self.get_config('doDirectionalAverage'):
+                # the directions depend on (y, scheme, method, doMergeB0)
+                # and the device they are fitted on: a re-fit reuses them
+                # (and the tile driver's plan, keyed on their identity)
+                dkey = (self.y, self.scheme, method,
+                        bool(self.get_config('doMergeB0')), device)
+                dc = getattr(self, '_fit_dirs_cache', None)
+                if dc is not None and dc[0] is dkey[0] \
+                        and dc[1] is dkey[1] and dc[2:5] == dkey[2:]:
+                    self.DIRs = dc[5]
+                    sp.attrs['cached'] = True
+                else:
+                    y_dti = (self._staged_y_ext_dev[1][:-1]
+                             if self._staged_y_ext_dev is not None
+                             else self.y)
+                    with torch.no_grad():
+                        self.DIRs = _pl.principal_directions(
+                            y_dti, self.scheme, method, dkey[3],
+                            device=device)
+                    self._fit_dirs_cache = dkey + (self.DIRs,)
+        if not sp.attrs['cached']:
+            self._stage_time(sp)
+        # the staging included, as in the JAX facade
+        self.set_config('dirs_precomputing_time',
+                        stage_sp.elapsed + sp.elapsed)
         LOG('   [ %s ]' % time.strftime(
             '%Hh %Mm %Ss',
             time.gmtime(self.get_config('dirs_precomputing_time'))))
 
-        t = time.time()
         LOG(f"\n-> Fitting '{self.model.name}' model to {n_vox} voxels:")
         prof_dir = self.get_config('profile_dir')
         prof_ctx = _profiler(prof_dir, device) if prof_dir \
             else contextlib.nullcontext()
-        with prof_ctx, self.timers.stage('fit', profile=True):
+        # the 'fit' range: the benchmark attributes the kernels within it
+        # to the model fit
+        with prof_ctx, torch.profiler.record_function('fit'), \
+                trace.span('model_fit') as sp:
             results = self.model.fit(self)
-        self.set_config('fit_time', time.time() - t)
-        tf['model_fit_s'] = time.time() - t
+        self._stage_time(sp, 'fit')
+        self.set_config('fit_time', sp.elapsed)
         LOG('   [ %s ]' % time.strftime(
             '%Hh %Mm %Ss', time.gmtime(self.get_config('fit_time'))))
 
-        t = time.time()
         if dist_on:
-            with self.timers.stage('gather'):
+            with trace.span('gather') as sp:
                 results = {k: dist.allgather_rows(np.asarray(v), n_vox)
                            for k, v in results.items()}
                 if self.DIRs is not None:
                     self.DIRs = dist.allgather_rows(
                         np.asarray(self.DIRs, np.float32), n_vox)
+            self._stage_time(sp)
             self.y = y_full
-        tf['gather_s'] = time.time() - t
-        t = time.time()
-        with self.timers.stage('scatter'):
+        with trace.span('scatter') as sp:
             self.RESULTS = self._scatter_results(results, mask)
-        tf['scatter_s'] = time.time() - t
-        tf['total_s'] = time.time() - t_enter
-        tf['unattributed_s'] = tf['total_s'] - sum(
-            v for k, v in tf.items() if k.endswith('_s')
-            and k not in ('total_s', 'unattributed_s'))
-        self._last_fit_facade_timers = tf
+        self._stage_time(sp)
 
     def _gather_signal(self, mask, slab_cache):
         """The masked voxels (N, nS) of the loaded volume: the fused native
@@ -703,18 +758,22 @@ class Evaluation:
     def _scatter_results(self, results, mask):
         """Expand per-voxel fit outputs into full volumes."""
         dim = self.get_config('dim')
-        out = {'MAPs': _pl.scatter(np.asarray(results['estimates'],
-                                              np.float32), mask, dim)}
-        dirs = (np.asarray(self.DIRs, np.float32) if self.DIRs is not None
-                else np.zeros((int(np.sum(mask == 1)), 3), np.float32))
-        out['DIRs'] = _pl.scatter(dirs, mask, dim)
-        if self.get_config('doComputeRMSE'):
-            out['RMSE'] = _pl.scatter(results['rmse'], mask, dim)
-        if self.get_config('doComputeNRMSE'):
-            out['NRMSE'] = _pl.scatter(results['nrmse'], mask, dim)
-        if self.model.name == 'NODDI' and self.get_config('doSaveModulatedMaps'):
-            out['MAPs_mod'] = _pl.scatter(
-                np.asarray(results['estimates_mod'], np.float32), mask, dim)
+        with trace.span('scatter_maps'):
+            out = {'MAPs': _pl.scatter(np.asarray(results['estimates'],
+                                                  np.float32), mask, dim)}
+            dirs = (np.asarray(self.DIRs, np.float32)
+                    if self.DIRs is not None
+                    else np.zeros((int(np.sum(mask == 1)), 3), np.float32))
+            out['DIRs'] = _pl.scatter(dirs, mask, dim)
+            if self.get_config('doComputeRMSE'):
+                out['RMSE'] = _pl.scatter(results['rmse'], mask, dim)
+            if self.get_config('doComputeNRMSE'):
+                out['NRMSE'] = _pl.scatter(results['nrmse'], mask, dim)
+            if self.model.name == 'NODDI' \
+                    and self.get_config('doSaveModulatedMaps'):
+                out['MAPs_mod'] = _pl.scatter(
+                    np.asarray(results['estimates_mod'], np.float32), mask,
+                    dim)
         if self.model.name == 'Free-Water' and self.get_config('doSaveCorrectedDWI'):
             mean_b0_masked = (self.mean_b0s[mask == 1]
                               if self.mean_b0s is not None else None)
@@ -723,13 +782,14 @@ class Evaluation:
             b0_cols = (np.array([0]) if self.get_config('doMergeB0')
                        else self.scheme.b0_idx)
             has_b0 = self.scheme.b0_count > 0
-            yc = _pl.reinstate_corrected_dwi(
-                results['y_corrected'], self.y, mean_b0_masked, b0_cols,
-                bool(self.get_config('doNormalizeSignal')) and has_b0,
-                bool(self.get_config('doKeepb0Intact')) and has_b0)
-            out['DWI_corrected'] = _pl.scatter(
-                yc.astype(np.float32), mask,
-                self.niiDWI.shape[:3] + (yc.shape[1],))
+            with trace.span('reinstate_dwi'):
+                yc = _pl.reinstate_corrected_dwi(
+                    results['y_corrected'], self.y, mean_b0_masked, b0_cols,
+                    bool(self.get_config('doNormalizeSignal')) and has_b0,
+                    bool(self.get_config('doKeepb0Intact')) and has_b0)
+                out['DWI_corrected'] = _pl.scatter(
+                    yc.astype(np.float32), mask,
+                    self.niiDWI.shape[:3] + (yc.shape[1],))
         return out
 
     # --------------------------------------------------------- save_results
@@ -738,6 +798,11 @@ class Evaluation:
         In distributed runs only the coordinator writes (every process
         holds the gathered maps); all processes meet at a barrier before
         returning."""
+        with trace.span('save_results') as sp:
+            self._save_results(path_suffix, save_dir_avg)
+        self._stage_time(sp)
+
+    def _save_results(self, path_suffix, save_dir_avg):
         if self.RESULTS is None:
             ERROR('Model not fitted to the data; call "fit()" first')
         dist_on = self._distributed()
@@ -810,7 +875,7 @@ class Evaluation:
         # complete before config.pickle, the completion marker (the
         # resume marker of sweep.py)
         from concurrent.futures import ThreadPoolExecutor
-        with self.timers.stage('save_results'), ThreadPoolExecutor(
+        with ThreadPoolExecutor(
                 max_workers=min(len(jobs), max(2, cpu_count() or 2))) as ex:
             futs = [(fname, ex.submit(_pl.write_map, data,
                                       pjoin(out_dir, fname), self.niiDWI,

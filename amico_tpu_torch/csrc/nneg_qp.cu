@@ -19,6 +19,9 @@
 //     The last scheduled round's stability seeds the test;
 //   a final masked-CG polish at budget `polish`, then x = max(x, 0).
 // Zero rounds return the FISTA iterate (or the warm start) as it is.
+// Optionally (tile_rounds not null) each tile writes the number of
+// continuation rounds it ran (0 without `converge`) to tile_rounds[tile]:
+// the counter of the tail, read while the port is traced.
 //
 // Layout.  A tile is a thread block cluster of QP_CLUSTER blocks, each on
 // its own SM, for n <= 32, and one block above.  A voxel is solved by a
@@ -88,6 +91,7 @@ struct QpParams {
   const float* m0;    // (C, M, n) 0/1, or null: seeds the working set
   const float* x0;    // (C, M, n), or null: with m0, CG's warm start
   float* x;           // (C, M, n): the result
+  int* tile_rounds;   // (C,): each tile's continuation rounds, or null
   int M, n;
   int state;          // 2: x and b_eff in shared memory; 1: x only; 0: neither
   float lam1, lam2;
@@ -314,12 +318,17 @@ nneg_qp_kernel(const QpParams P) {
     g_stable &= scheduled<K, W>(P, Gs, step, VS, v, base + v, L, sc);
     g_scale = fmaxf(g_scale, sc);
   }
-  if (P.s.rounds == 0) return;
+  const bool counted = P.tile_rounds && tid == 0 && rank == 0;
+  if (P.s.rounds == 0) {
+    if (counted) P.tile_rounds[c] = 0;
+    return;
+  }
   float xtol = g_scale;
   bool done = tile_vote<NW, CS>(g_stable, xtol, red, slots, 0, warp, wlane);
   xtol *= QP_TOL;
+  int used = 0;       // continuation rounds run (the same in every thread)
   if (P.s.cont_cg > 0) {
-    for (int i = 0; i < P.s.cont_rounds && !done; i++) {
+    for (; used < P.s.cont_rounds && !done; used++) {
       bool gs = true;
       float gdx = 0.f;
       for (int v = grp; v < M; v += NGT) {
@@ -327,11 +336,12 @@ nneg_qp_kernel(const QpParams P) {
         gs &= cont_round<K, W>(P, Gs, VS, v, base + v, L, dx);
         gdx = fmaxf(gdx, dx);
       }
-      const bool st = tile_vote<NW, CS>(gs, gdx, red, slots, i + 1, warp,
+      const bool st = tile_vote<NW, CS>(gs, gdx, red, slots, used + 1, warp,
                                         wlane);
       done = st || gdx <= xtol;
     }
   }
+  if (counted) P.tile_rounds[c] = used;
   // no block leaves while another may still read its slots
   if (CS > 1) coop::this_cluster().sync();
   // every path above ends in a block barrier after the last state write
@@ -367,11 +377,12 @@ static int launch(const QpParams& P, int C, size_t smem, cudaStream_t st) {
 extern "C" {
 
 // sched: [fista, rounds, inner, add_k, polish, cont_cg, cont_rounds,
-// cg[QP_MAXR]] (host); round r runs cg[min(r, QP_MAXR - 1)]
+// cg[QP_MAXR]] (host); round r runs cg[min(r, QP_MAXR - 1)].  tile_rounds:
+// (C,) int32 on the device for each tile's continuation rounds, or null
 int nneg_qp_launch(const void* G, const void* b, const void* mask,
-                   const void* m0, const void* x0, void* x, int C, int M,
-                   int n, float lam1, float lam2, const void* sched,
-                   void* stream) {
+                   const void* m0, const void* x0, void* x,
+                   void* tile_rounds, int C, int M, int n, float lam1,
+                   float lam2, const void* sched, void* stream) {
   if (n < 1 || n > 32 * QP_MAXK) return (int)cudaErrorInvalidValue;
   QpParams P;
   P.G = (const float*)G;
@@ -380,6 +391,7 @@ int nneg_qp_launch(const void* G, const void* b, const void* mask,
   P.m0 = (const float*)m0;
   P.x0 = (const float*)x0;
   P.x = (float*)x;
+  P.tile_rounds = (int*)tile_rounds;
   P.M = M;
   P.n = n;
   P.lam1 = lam1;

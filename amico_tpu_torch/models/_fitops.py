@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..ops.cuda_qp import nneg_qp_tiles
 from ..ops.solvers import nneg_qp_batch
 
@@ -42,11 +43,22 @@ def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
     tile and ignores ``L``.  'xla' runs the stagewise
     ``ops.solvers.nneg_qp_batch`` on the per-tile Grams ``G[:, None]`` with
     ``L[:, None]``, as the JAX package does.  ``m0``/``x0`` warm-start the
-    active-set rounds and skip FISTA."""
+    active-set rounds and skip FISTA.  While the port is traced, the tile
+    QP's continuation rounds, summed on the device, and its tiles go to
+    the counters ``k2.rounds`` and ``k2.tiles`` (the tile driver reads the
+    device sum after its synchronise)."""
     kw = dict(solver_kw or {})
     if backend == 'xla':
         return nneg_qp_batch(G[:, None], b, lam1, lam2, mask=mask,
                              L=L[:, None], m0=m0, x0=x0, **kw)
     if backend != 'pallas':
         raise ValueError(f'unknown backend {backend!r}')
-    return nneg_qp_tiles(G, b, L, lam1, lam2, mask=mask, m0=m0, x0=x0, **kw)
+    if not trace.on():
+        return nneg_qp_tiles(G, b, L, lam1, lam2, mask=mask, m0=m0, x0=x0,
+                             **kw)
+    rounds = torch.empty(b.shape[0], dtype=torch.int32, device=b.device)
+    x = nneg_qp_tiles(G, b, L, lam1, lam2, mask=mask, m0=m0, x0=x0,
+                      tile_rounds=rounds, **kw)
+    trace.count_on_device('k2.rounds', rounds.sum())
+    trace.count('k2.tiles', b.shape[0])
+    return x

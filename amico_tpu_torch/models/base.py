@@ -19,12 +19,14 @@ as soon as it is computed and untile them there.  As in the JAX driver, a
 re-fit of the same objects reuses the LUT quantization and tile plans
 (``_plan_cache``), the staged inputs on each device (``_stage_cache``,
 gathered mode only) and the model's device constants (``_prep_cache``).
+The tile driver's phases are spans of ``trace`` (plan, with quantize,
+tile_plan and stage_inputs; dispatch, with a chunk each; device_wait; pull;
+untile on the host), from which ``_last_fit_timers`` is built.
 """
 from __future__ import annotations
 
 import hashlib
 import os
-import time
 from abc import ABC, abstractmethod
 from os.path import join as pjoin
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import lut as _lut
+from .. import trace
 from ..utils.logging import ERROR
 from .engine import (auto_tile_size, build_tile_plan, iter_tile_chunks,
                      tile_voxels, untile_voxels)
@@ -374,18 +377,192 @@ class BaseModel(ABC):
         atomically); a rerun of the same fit skips the chunks below
         ``done_until``, and the file is deleted when the fit completes."""
         from ..parallel.mesh import Mesh
-        t_enter = time.time()
-        mesh = evaluation.get_config('mesh')
-        if mesh is None:
-            mesh = Mesh([device])
-        elif not isinstance(mesh, Mesh):
-            ERROR('config "mesh" must be a mesh from '
-                  f'amico_tpu_torch.parallel.make_mesh(), got {mesh!r}')
-        devices = [_concrete(d) for d in mesh.devices]
-        y = np.asarray(evaluation.y)
-        # the LUT quantization and the tile plans depend on DIRs alone: kept
-        # across fits of the same DIRs and htable objects (identity), with
-        # a strided content sum of DIRs, so that an in-place edit misses
+        with trace.span('plan') as plan_sp:
+            mesh = evaluation.get_config('mesh')
+            if mesh is None:
+                mesh = Mesh([device])
+            elif not isinstance(mesh, Mesh):
+                ERROR('config "mesh" must be a mesh from '
+                      f'amico_tpu_torch.parallel.make_mesh(), got {mesh!r}')
+            devices = [_concrete(d) for d in mesh.devices]
+            y = np.asarray(evaluation.y)
+            with trace.span('quantize', cached=True) as sp:
+                pc = self._lut_quantization(evaluation, sp)
+            with trace.span('tile_plan', cached=True) as sp:
+                tile_size = self._tile_size(
+                    evaluation, pc, self._solver_backend(devices[0]),
+                    devices)
+                vpc = evaluation.get_config('voxels_per_chunk')
+                vpc = DEFAULT_VOXELS_PER_CHUNK if vpc in (None, 'auto') \
+                    else int(vpc)
+                chunk_tiles = max(1, vpc // tile_size)
+                plan = pc[2].get(tile_size)
+                if plan is None:
+                    sp.attrs['cached'] = False
+                    plan = pc[2][tile_size] = build_tile_plan(pc[1],
+                                                              tile_size)
+
+            # the JAX driver's rule on the float32 bytes that would be
+            # staged (on each device of a mesh): within the budget the flat
+            # signal is staged once and each chunk gathered on the device;
+            # beyond it host-tiled chunks stream, at most max_inflight of
+            # them on the devices at once, none cached
+            budget = int(evaluation.get_config('max_device_bytes')
+                         or DEFAULT_MAX_DEVICE_BYTES)
+            M, nS = tile_size, y.shape[1]
+            device_gather = y.size * 4 <= budget
+            max_inflight = max(2, budget // max(chunk_tiles * M * nS * 4, 1))
+
+            # a strided sum of the signal: the staged inputs' key and the
+            # checkpoint's fingerprint
+            ystride = max(1, y.size // 65536)
+            y_sum = float(np.sum(y.ravel()[::ystride], dtype=np.float64))
+            ckpt_path = evaluation.get_config('fit_checkpoint')
+            gathered = device_gather and not ckpt_path \
+                and evaluation.get_config('mesh') is None
+            N = y.shape[0]
+            if gathered:
+                # the outputs in voxel order on the device: every voxel's
+                # row is written once, the padding slots' all go to row N
+                out_dev = {k: torch.empty((N + 1,) + shape,
+                                          dtype=torch.float32,
+                                          device=devices[0])
+                           for k, shape in n_outputs_like.items()}
+            else:
+                # pinned for a CUDA device, so that each chunk's copy runs
+                # on its stream as soon as the chunk is done
+                pin = any(d.type == 'cuda' for d in devices)
+                out_t = {k: torch.zeros((plan.n_tiles, tile_size) + shape,
+                                        dtype=torch.float32, pin_memory=pin)
+                         for k, shape in n_outputs_like.items()}
+                out_tiles = {k: t.numpy() for k, t in out_t.items()}
+            # a checkpoint is merged only when it matches this exact fit
+            # (the fingerprint) and holds every requested output
+            ckpt_every = int(evaluation.get_config('checkpoint_every') or 4)
+            done_until = 0
+            if ckpt_path:
+                ck_fp = self._ckpt_fingerprint(plan, tile_size, y,
+                                               y_sum=y_sum)
+                if os.path.isfile(ckpt_path):
+                    with np.load(ckpt_path) as ck:
+                        if 'plan_fp' in ck \
+                                and np.array_equal(ck['plan_fp'], ck_fp) \
+                                and all(k in ck for k in out_tiles):
+                            done_until = int(ck['done_until'])
+                            for k in out_tiles:
+                                out_tiles[k][:done_until] = \
+                                    ck[k][:done_until]
+            with trace.span('stage_inputs', cached=True) as sp:
+                inputs, shared, Y_host = self._staged_inputs(
+                    evaluation, y, y_sum, plan, tile_size, chunk_tiles,
+                    device_gather, devices, sp)
+        timers = {'setup_s': plan_sp.elapsed,
+                  'streamed': int(not device_gather),
+                  'staged_shared': shared, 'tile_size': tile_size,
+                  'chunk_tiles': chunk_tiles}
+
+        def pull(done):
+            """Wait until a chunk's outputs are on the host."""
+            if done is not None:
+                done.synchronize()
+
+        pending = []
+        n_dispatched = 0
+        with trace.span('dispatch') as disp_sp:
+            # each device's chunk function, built before its streams are
+            # taken: the second stream waits for the constants queued on
+            # the current
+            fns = [chunk_fn_for(d) for d in devices]
+            streams = [_chunk_streams(d) for d in devices]
+            first_devices = []
+            chunks = iter_tile_chunks(plan.n_tiles, chunk_tiles)
+            for i, (start, stop, _pad) in enumerate(chunks):
+                if stop <= done_until:
+                    continue
+                # the last chunk runs short instead of padded: eager
+                # dispatch has no compiled shape to keep
+                j = i % len(devices)
+                d = devices[j]
+                k_stream = (i // len(devices)) % len(streams[j])
+                stream = streams[j][k_stream]
+                y_ext, perm, dirs_t, valid_t = inputs[d]
+                with trace.span('chunk', start=start, stop=stop,
+                                stream=k_stream), torch.cuda.stream(stream):
+                    if device_gather:
+                        idx = perm[start * M:stop * M]
+                        Yc = y_ext.index_select(0, idx).view(stop - start,
+                                                             M, nS)
+                    else:
+                        Yc = torch.from_numpy(Y_host[start:stop])
+                        if d.type == 'cuda':
+                            Yc = Yc.pin_memory().to(d, non_blocking=True)
+                    res = fns[j](Yc, dirs_t[start:stop], valid_t[start:stop])
+                    # on the chunk's stream, so after the chunk's work; the
+                    # result blocks are freed to that stream, so the
+                    # allocator reuses them only after these copies
+                    for k, arr in res.items():
+                        if gathered:
+                            out_dev[k].index_copy_(
+                                0, idx,
+                                arr.reshape((-1,) + out_dev[k].shape[1:])
+                                .float())
+                        else:
+                            out_t[k][start:stop].copy_(arr,
+                                                       non_blocking=True)
+                    done = None
+                    if stream is not None:
+                        done = torch.cuda.Event()
+                        done.record(stream)
+                del Yc, res
+                if len(first_devices) < len(devices):
+                    first_devices.append(d)
+                pending.append(done)
+                n_dispatched += 1
+                if len(pending) >= max_inflight:
+                    pull(pending.pop(0))
+                if ckpt_path and n_dispatched % ckpt_every == 0:
+                    for done in pending:
+                        pull(done)
+                    pending = []
+                    np.savez(ckpt_path + '.tmp', plan_fp=ck_fp,
+                             done_until=stop, **out_tiles)
+                    os.replace(ckpt_path + '.tmp.npz', ckpt_path)
+        timers['dispatch_s'] = disp_sp.elapsed
+        timers['n_chunks'] = n_dispatched
+        with trace.span('device_wait') as sp:
+            for d in dict.fromkeys(devices):
+                if d.type == 'cuda':
+                    torch.cuda.synchronize(d)
+        timers['device_s'] = sp.elapsed
+        # the device counts of the chunks (K2's rounds), now complete
+        trace.settle()
+
+        # every device is synchronised: the buffers written on the second
+        # stream are complete, and freed only after their copies below
+        with trace.span('pull') as sp:
+            if gathered:
+                out = {k: _to_host(v[:N]) for k, v in out_dev.items()}
+                del out_dev
+        timers['pull_s'] = sp.elapsed
+        if ckpt_path and os.path.isfile(ckpt_path):
+            os.remove(ckpt_path)
+        # the host untile: the streamed, mesh and checkpointed fits only
+        timers['untile_s'] = 0.0
+        if not gathered:
+            with trace.span('untile') as sp:
+                out = {k: untile_voxels(plan, v)
+                       for k, v in out_tiles.items()}
+            timers['untile_s'] = sp.elapsed
+        self._last_fit_timers = timers
+        self._last_fit_devices = first_devices
+        return out
+
+    def _lut_quantization(self, evaluation, sp):
+        """The LUT index of each voxel's direction and the tile plans by
+        width, kept across fits: they depend on DIRs alone, so a fit of the
+        same DIRs and htable objects (identity) with the same strided
+        content sum of DIRs (an in-place edit misses) reuses them; a miss
+        sets ``cached`` False on the span ``sp``."""
         DIRs = np.asarray(evaluation.DIRs, np.float64)
         dstride = max(1, DIRs.size // 65536)
         dirs_fp = (DIRs.shape,
@@ -394,74 +571,29 @@ class BaseModel(ABC):
         pc = getattr(self, '_plan_cache', None)
         if pc is None or pc[0][0] is not pkey[0] or pc[0][1] != pkey[1] \
                 or pc[0][2] is not pkey[2]:
+            sp.attrs['cached'] = False
             pc = self._plan_cache = (
                 pkey, _lut.dir_to_lut_idx(DIRs, evaluation.htable), {})
-        tile_size = self._tile_size(evaluation, pc,
-                                    self._solver_backend(devices[0]), devices)
-        vpc = evaluation.get_config('voxels_per_chunk')
-        vpc = DEFAULT_VOXELS_PER_CHUNK if vpc in (None, 'auto') else int(vpc)
-        chunk_tiles = max(1, vpc // tile_size)
-        plan = pc[2].get(tile_size)
-        if plan is None:
-            plan = pc[2][tile_size] = build_tile_plan(pc[1], tile_size)
+        return pc
 
-        # the JAX driver's rule on the float32 bytes that would be staged
-        # (on each device of a mesh): within the budget the flat signal is
-        # staged once and each chunk gathered on the device; beyond it
-        # host-tiled chunks stream, at most max_inflight of them on the
-        # devices at once, none cached
-        budget = int(evaluation.get_config('max_device_bytes')
-                     or DEFAULT_MAX_DEVICE_BYTES)
-        M, nS = tile_size, y.shape[1]
-        device_gather = y.size * 4 <= budget
-        max_inflight = max(2, budget // max(chunk_tiles * M * nS * 4, 1))
+    def _staged_inputs(self, evaluation, y, y_sum, plan, tile_size,
+                       chunk_tiles, device_gather, devices, sp):
+        """Each device's inputs of the chunks: (the staged signal, the
+        plan's permutation, the tile directions, the tile masks), the
+        signal and permutation None when streamed; whether the facade's
+        upload is the staged signal; and the host-tiled signal when
+        streamed (else None).  A miss of the staged inputs' cache sets
+        ``cached`` False on the span ``sp``, and ``shared`` on it.
 
-        # a strided sum of the signal: the staged inputs' key and the
-        # checkpoint's fingerprint
-        ystride = max(1, y.size // 65536)
-        y_sum = float(np.sum(y.ravel()[::ystride], dtype=np.float64))
-        ckpt_path = evaluation.get_config('fit_checkpoint')
-        gathered = device_gather and not ckpt_path \
-            and evaluation.get_config('mesh') is None
-        N = y.shape[0]
-        if gathered:
-            # the outputs in voxel order on the device: every voxel's row is
-            # written once, the padding slots' all go to row N
-            out_dev = {k: torch.empty((N + 1,) + shape, dtype=torch.float32,
-                                      device=devices[0])
-                       for k, shape in n_outputs_like.items()}
-        else:
-            # pinned for a CUDA device, so that each chunk's copy runs on
-            # its stream as soon as the chunk is done
-            pin = any(d.type == 'cuda' for d in devices)
-            out_t = {k: torch.zeros((plan.n_tiles, tile_size) + shape,
-                                    dtype=torch.float32, pin_memory=pin)
-                     for k, shape in n_outputs_like.items()}
-            out_tiles = {k: t.numpy() for k, t in out_t.items()}
-        # a checkpoint is merged only when it matches this exact fit (the
-        # fingerprint) and holds every requested output
-        ckpt_every = int(evaluation.get_config('checkpoint_every') or 4)
-        done_until = 0
-        if ckpt_path:
-            ck_fp = self._ckpt_fingerprint(plan, tile_size, y, y_sum=y_sum)
-            if os.path.isfile(ckpt_path):
-                with np.load(ckpt_path) as ck:
-                    if 'plan_fp' in ck \
-                            and np.array_equal(ck['plan_fp'], ck_fp) \
-                            and all(k in ck for k in out_tiles):
-                        done_until = int(ck['done_until'])
-                        for k in out_tiles:
-                            out_tiles[k][:done_until] = ck[k][:done_until]
-
-        # the staged inputs, kept across fits in gathered mode only: per
-        # device, the staged signal, the plan's permutation and the tile
-        # directions and masks.  The JAX driver's key, with the mesh's
-        # devices and whether a mesh was given in place of its sharding (a
-        # one-card mesh and no mesh have the same devices, but only without
-        # a mesh does the facade stage the signal), and the plan compared
-        # exactly (the JAX key's strided sum of the permutation stays the
-        # same when new directions move voxels between tiles).  A miss or a
-        # streamed fit drops the old inputs before anything new is placed
+        Kept across fits in gathered mode only.  The JAX driver's key, with
+        the mesh's devices and whether a mesh was given in place of its
+        sharding (a one-card mesh and no mesh have the same devices, but
+        only without a mesh does the facade stage the signal), and the plan
+        compared exactly (the JAX key's strided sum of the permutation
+        stays the same when new directions move voxels between tiles).  A
+        miss or a streamed fit drops the old inputs before anything new is
+        placed."""
+        nS = y.shape[1]
         stage_key = (evaluation.y, (y.shape, y_sum), tile_size, chunk_tiles,
                      device_gather, tuple(devices),
                      evaluation.get_config('mesh') is None)
@@ -471,11 +603,12 @@ class BaseModel(ABC):
                 and _same_plan(staged[2], plan):
             inputs = staged[1]
         else:
+            sp.attrs['cached'] = False
             self._stage_cache = staged = None
             inputs = {}
             if device_gather:
                 self._stage_cache = (stage_key, inputs, plan)
-        shared = 0
+        shared, Y_host = 0, None
         if device_gather:
             # the facade's upload (shared with the DTI fit) on its device
             facade = {}
@@ -505,95 +638,5 @@ class BaseModel(ABC):
                 inputs[d] = (None, None,
                              torch.from_numpy(plan.tile_dirs.astype(np.int64))
                              .to(d), torch.from_numpy(plan.valid).to(d))
-        timers = {'setup_s': time.time() - t_enter,
-                  'streamed': int(not device_gather),
-                  'staged_shared': shared, 'tile_size': tile_size,
-                  'chunk_tiles': chunk_tiles}
-
-        def pull(done):
-            """Wait until a chunk's outputs are on the host."""
-            if done is not None:
-                done.synchronize()
-
-        t_loop = time.time()
-        untile_s = 0.0
-        pending = []
-        n_dispatched = 0
-        # each device's chunk function, built before its streams are taken:
-        # the second stream waits for the constants queued on the current
-        fns = [chunk_fn_for(d) for d in devices]
-        streams = [_chunk_streams(d) for d in devices]
-        first_devices = []
-        chunks = iter_tile_chunks(plan.n_tiles, chunk_tiles)
-        for i, (start, stop, _pad) in enumerate(chunks):
-            if stop <= done_until:
-                continue
-            # the last chunk runs short instead of padded: eager dispatch
-            # has no compiled shape to keep
-            j = i % len(devices)
-            d = devices[j]
-            stream = streams[j][(i // len(devices)) % len(streams[j])]
-            y_ext, perm, dirs_t, valid_t = inputs[d]
-            with torch.cuda.stream(stream):
-                if device_gather:
-                    idx = perm[start * M:stop * M]
-                    Yc = y_ext.index_select(0, idx).view(stop - start, M, nS)
-                else:
-                    Yc = torch.from_numpy(Y_host[start:stop])
-                    if d.type == 'cuda':
-                        Yc = Yc.pin_memory().to(d, non_blocking=True)
-                res = fns[j](Yc, dirs_t[start:stop], valid_t[start:stop])
-                # on the chunk's stream, so after the chunk's work; the
-                # result blocks are freed to that stream, so the allocator
-                # reuses them only after these copies
-                t_u = time.time()
-                for k, arr in res.items():
-                    if gathered:
-                        out_dev[k].index_copy_(
-                            0, idx, arr.reshape((-1,) + out_dev[k].shape[1:])
-                            .float())
-                    else:
-                        out_t[k][start:stop].copy_(arr, non_blocking=True)
-                untile_s += time.time() - t_u
-                done = None
-                if stream is not None:
-                    done = torch.cuda.Event()
-                    done.record(stream)
-            del Yc, res
-            if len(first_devices) < len(devices):
-                first_devices.append(d)
-            pending.append(done)
-            n_dispatched += 1
-            if len(pending) >= max_inflight:
-                pull(pending.pop(0))
-            if ckpt_path and n_dispatched % ckpt_every == 0:
-                for done in pending:
-                    pull(done)
-                pending = []
-                np.savez(ckpt_path + '.tmp', plan_fp=ck_fp, done_until=stop,
-                         **out_tiles)
-                os.replace(ckpt_path + '.tmp.npz', ckpt_path)
-        timers['dispatch_s'] = time.time() - t_loop
-        timers['n_chunks'] = n_dispatched
-        for d in dict.fromkeys(devices):
-            if d.type == 'cuda':
-                torch.cuda.synchronize(d)
-        timers['device_s'] = time.time() - t_loop - timers['dispatch_s']
-
-        # every device is synchronised: the buffers written on the second
-        # stream are complete, and freed only after their copies below
-        t_pull = time.time()
-        if gathered:
-            out = {k: _to_host(v[:N]) for k, v in out_dev.items()}
-            del out_dev
-        timers['pull_s'] = time.time() - t_pull
-        if ckpt_path and os.path.isfile(ckpt_path):
-            os.remove(ckpt_path)
-        if not gathered:
-            t_unt = time.time()
-            out = {k: untile_voxels(plan, v) for k, v in out_tiles.items()}
-            untile_s = time.time() - t_unt
-        timers['untile_s'] = untile_s
-        self._last_fit_timers = timers
-        self._last_fit_devices = first_devices
-        return out
+        sp.attrs['shared'] = shared
+        return inputs, shared, Y_host

@@ -21,12 +21,11 @@ Palombo et al. (2020) NeuroImage 215: 116835.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from .. import lut as _lut
+from .. import trace
 from ..device import resolve_device
 from ..ops.solvers import gram, nneg_qp_batch, power_iteration_L
 from ..synthesis import Astrosticks, Ball, SphereGPD
@@ -210,9 +209,8 @@ class SANDI(BaseModel):
             chunks_dev = {}
             self._stage_cache = (stage_key, chunks_dev)
         timers = {}
-        t0 = time.time()
         pending = []
-        with torch.no_grad():
+        with torch.no_grad(), trace.span('dispatch') as sp:
             for start in range(0, N, chunk):
                 Yc_dev = chunks_dev.get(start)
                 if Yc_dev is None:
@@ -228,16 +226,18 @@ class SANDI(BaseModel):
                         np.ascontiguousarray(Yc)).to(device)
                 pending.append((min(chunk, N - start), fit_chunk(Yc_dev)))
         timers['n_chunks'] = len(pending)
-        timers['dispatch_s'] = time.time() - t0
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
-        timers['device_s'] = time.time() - t0 - timers['dispatch_s']
-        t1 = time.time()
-        outs: dict[str, list] = {}
-        for take, res in pending:
-            for k, v in res.items():
-                outs.setdefault(k, []).append(v[:take].float().cpu().numpy())
-        out = {k: np.concatenate(v) for k, v in outs.items()}
-        timers['pull_s'] = time.time() - t1
+        timers['dispatch_s'] = sp.elapsed
+        with trace.span('device_wait') as sp:
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
+        timers['device_s'] = sp.elapsed
+        with trace.span('pull') as sp:
+            outs: dict[str, list] = {}
+            for take, res in pending:
+                for k, v in res.items():
+                    outs.setdefault(k, []).append(
+                        v[:take].float().cpu().numpy())
+            out = {k: np.concatenate(v) for k, v in outs.items()}
+        timers['pull_s'] = sp.elapsed
         self._last_fit_timers = timers
         return out

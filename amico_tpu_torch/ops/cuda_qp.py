@@ -202,9 +202,10 @@ def _fista(mv, G, bm, l1, l2, cmask, iters, early_exit=False):
 
 
 def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
-              x_init=None):
+              x_init=None, tile_rounds=None):
     """One solve for a batch of tiles: G (C, n, n), b/cmask (C, M, n).
-    The tile (dim 0) is the unit of the ``converge`` continuation."""
+    The tile (dim 0) is the unit of the ``converge`` continuation; each
+    tile's continuation rounds are added to ``tile_rounds`` (C,) if given."""
     Gt = G.transpose(-1, -2)
 
     def mv(v):                                  # G v for each voxel
@@ -299,6 +300,8 @@ def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
         for _ in range(sch.cont_rounds):
             if bool(done.all()):
                 break
+            if tile_rounds is not None:
+                tile_rounds += (~done).to(tile_rounds.dtype)
             xn, mn, st = as_round(x, m, sch.cont_cg, inner)
             done_now = st | ((xn - x).abs().flatten(1).amax(1) <= xtol)
             run = (~done).view(tile)
@@ -499,7 +502,7 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NODDI_LAUNCH = Launcher('noddi_fused_launch',
                          [_vp] * 15 + [_ci] * 6 + [_cf, _cf, _vp])
 _QP_LAUNCH = Launcher('nneg_qp_launch',
-                      [_vp] * 6 + [_ci] * 3 + [_cf, _cf, _vp])
+                      [_vp] * 7 + [_ci] * 3 + [_cf, _cf, _vp])
 
 
 def _max_smem(device) -> int:
@@ -652,22 +655,41 @@ def _check_qp_inputs(G, b, mask, m0, x0):
 def nneg_qp_tiles_torch(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
                         fista_iters=60, cd_sweeps=4, refine_rounds=14,
                         cg_iters=24, inner_passes=2, m0=None, x0=None,
-                        converge=False, add_k=1):
+                        converge=False, add_k=1, tile_rounds=None):
     """Plain PyTorch version of the tile QP, on any device.
 
     G (C, n, n), b (C, M, n) -> x (C, M, n), all float32; ``mask``, ``m0``
     and ``x0`` are (C, M, n).  ``m0``/``x0`` seed the working set and the
     first CG solve and skip FISTA.  ``L`` and ``cd_sweeps`` are accepted
-    and ignored, as by ``nneg_qp_tiles_pallas``."""
+    and ignored, as by ``nneg_qp_tiles_pallas``.  ``tile_rounds``, a (C,)
+    int32 tensor on b's device, receives each tile's ``converge``
+    continuation rounds (0 without)."""
     _check_qp_inputs(G, b, mask, m0, x0)
+    _check_tile_rounds(tile_rounds, b)
     sch = qp_schedule(b.shape[-1], fista_iters, refine_rounds, cg_iters,
                       inner_passes, converge, add_k)
     cmask = torch.ones_like(b) if mask is None else mask
+    if tile_rounds is not None:
+        tile_rounds.zero_()
     if m0 is None:
-        return _as_solve(G, b, float(lam1), float(lam2), cmask, sch)
+        return _as_solve(G, b, float(lam1), float(lam2), cmask, sch,
+                         tile_rounds=tile_rounds)
     x_init = (torch.zeros_like(b) if x0 is None else x0) * cmask
     return _as_solve(G, b, float(lam1), float(lam2), cmask, sch,
-                     m0=m0 * cmask, x_init=x_init)
+                     m0=m0 * cmask, x_init=x_init, tile_rounds=tile_rounds)
+
+
+def _check_tile_rounds(tile_rounds, b):
+    if tile_rounds is None:
+        return
+    if tile_rounds.dtype != torch.int32 \
+            or tuple(tile_rounds.shape) != (b.shape[0],) \
+            or tile_rounds.device != b.device \
+            or not tile_rounds.is_contiguous():
+        raise ValueError('tile_rounds must be a contiguous (C,) int32 '
+                         f'tensor on {b.device}, got '
+                         f'{tuple(tile_rounds.shape)} {tile_rounds.dtype} on '
+                         f'{tile_rounds.device}')
 
 
 def _qp_sched_array(sch: StageSchedule) -> np.ndarray:
@@ -743,18 +765,22 @@ def qp_geometry(n: int, M: int, smem_max: int) -> QpGeometry:
 
 def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
                   fista_iters=60, cd_sweeps=4, refine_rounds=14, cg_iters=24,
-                  inner_passes=2, m0=None, x0=None, converge=False, add_k=1):
+                  inner_passes=2, m0=None, x0=None, converge=False, add_k=1,
+                  tile_rounds=None):
     """Tile QP: the CUDA kernel for CUDA tensors, the twin for CPU tensors.
     Same arguments and return as :func:`nneg_qp_tiles_torch`.  The kernel
     takes n <= QP_MAX_ATOMS and 0/1 ``mask`` and ``m0``, and raises on the
-    rest.  ``nneg_qp_tiles.launches`` counts kernel launches."""
+    rest.  Without ``tile_rounds`` the kernel writes no round count.
+    ``nneg_qp_tiles.launches`` counts kernel launches."""
     if b.device.type == 'cpu':
         return nneg_qp_tiles_torch(G, b, L, lam1, lam2, mask, fista_iters,
                                    cd_sweeps, refine_rounds, cg_iters,
-                                   inner_passes, m0, x0, converge, add_k)
+                                   inner_passes, m0, x0, converge, add_k,
+                                   tile_rounds)
     if b.device.type != 'cuda':
         raise ValueError(f'unsupported device {b.device}')
     _check_qp_inputs(G, b, mask, m0, x0)
+    _check_tile_rounds(tile_rounds, b)
     C, M, n = b.shape
     qp_geometry(n, M, _max_smem(b.device))
     sched = _qp_sched_array(qp_schedule(n, fista_iters, refine_rounds,
@@ -771,9 +797,11 @@ def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
     if C * M > 0:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         _QP_LAUNCH(b.device, G.data_ptr(), b.data_ptr(), ptr(mask), ptr(m0),
-                   ptr(x0), x.data_ptr(), C, M, n, float(lam1), float(lam2),
-                   sched.ctypes.data)
+                   ptr(x0), x.data_ptr(), ptr(tile_rounds), C, M, n,
+                   float(lam1), float(lam2), sched.ctypes.data)
         nneg_qp_tiles.launches += 1
+    elif tile_rounds is not None:
+        tile_rounds.zero_()
     return x
 
 

@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import hashlib
 import os
-import time
 from os.path import join as pjoin
 
 import numpy as np
 
+from . import trace
 from .core import Evaluation
 from .parallel import dist
 from .utils.logging import LOG, WARNING
@@ -49,7 +49,8 @@ class SubjectSweep:
         self.solver_params = solver_params or {}
         self.results: dict[str, str] = {}
         # wall seconds of each fitted subject, from its turn to its written
-        # maps (a prefetched load counts only as long as the sweep waited)
+        # maps (a prefetched load counts only as long as the sweep waited):
+        # its 'subject' span
         self.seconds: dict[str, float] = {}
         # cross-subject warm state: (signature, (model, KERNELS, htable)),
         # and the subjects of this sweep that reused it
@@ -93,13 +94,18 @@ class SubjectSweep:
             done = bool(dist.broadcast_scalar(int(done)))
         return done
 
-    def _prepare(self, subject: str):
+    def _prepare(self, subject: str, req: int | None = None):
         """Build the subject's Evaluation and run load_data (host I/O +
         native preprocessing).  Runs on the prefetch thread: on the
         default path everything here is host-side mask/volume staging, so
         subject k+1's load overlaps subject k's fit/save.  (run() gates
         prefetch off when doDebiasSignal is set -- that load_data stage
-        runs on the device and must not race the active fit.)"""
+        runs on the device and must not race the active fit.)  Its spans
+        take the request id ``req``, the subject's."""
+        with trace.request(req):
+            return self._load(subject)
+
+    def _load(self, subject: str):
         out_base = self.config.get('OUTPUT_path')
         ev = Evaluation(self.study_path, subject,
                         output_path=None if out_base is None
@@ -131,6 +137,7 @@ class SubjectSweep:
             and not self.config.get('doDebiasSignal')
         ex = None
         pending = {}            # subject -> Future
+        reqs = {}               # subject -> the request id of its spans
         if prefetch_on and len(self.subjects) > 1:
             from concurrent.futures import ThreadPoolExecutor
             ex = ThreadPoolExecutor(max_workers=1,
@@ -139,13 +146,14 @@ class SubjectSweep:
         def start_prefetch(idx):
             for s in self.subjects[idx:]:
                 if s not in pending and not (resume and self._is_done(s)):
-                    pending[s] = ex.submit(self._prepare, s)
+                    reqs[s] = trace.new_req()
+                    pending[s] = ex.submit(self._prepare, s, reqs[s])
                     return
 
         if ex is not None:
             start_prefetch(0)
         try:
-            self._run_subjects(resume, checkpoint, ex, pending,
+            self._run_subjects(resume, checkpoint, ex, pending, reqs,
                                start_prefetch)
         finally:
             # also on KeyboardInterrupt/SystemExit: an uncancelled future
@@ -161,49 +169,52 @@ class SubjectSweep:
                 self._warm[1][0]._stage_cache = None
         return self.results
 
-    def _run_subjects(self, resume, checkpoint, ex, pending, start_prefetch):
+    def _run_subjects(self, resume, checkpoint, ex, pending, reqs,
+                      start_prefetch):
         for si, subject in enumerate(self.subjects):
             if resume and self._is_done(subject):
                 LOG(f'-> [{subject}] already fitted, skipping (resume)')
                 self.results[subject] = self._result_dir(subject)
                 continue
-            t0 = time.time()
             try:
-                fut = pending.pop(subject, None)
-                ev = fut.result() if fut is not None \
-                    else self._prepare(subject)
-                if ex is not None:
-                    start_prefetch(si + 1)
-                if checkpoint:
-                    ev.set_config('fit_checkpoint', pjoin(
-                        self.study_path, subject,
-                        f'.amico_tpu_ckpt_{self.model_name}.npz'))
-                ev.set_model(self.model_name)
-                if self.model_params:
-                    ev.model.set(**self.model_params)
-                if self.solver_params:
-                    ev.set_solver(**self.solver_params)
-                ev.generate_kernels(lmax=self.lmax, ndirs=self.ndirs)
-                # cross-subject warm state: subjects sharing a scheme and
-                # model/solver params reuse one model instance (its
-                # kernel-prep caches survive) and the resampled
-                # KERNELS/htable -- per-subject LUT resampling is the
-                # dominant sweep overhead once the fit itself is sub-second
-                sig = self._warm_signature(ev)
-                if self._warm is not None and self._warm[0] == sig:
-                    model, kernels, htable = self._warm[1]
-                    model.scheme = ev.scheme
-                    ev.model = model
-                    ev.KERNELS = kernels
-                    ev.htable = htable
-                    self.warm_reused.append(subject)
-                else:
-                    ev.load_kernels()
-                    self._warm = (sig, (ev.model, ev.KERNELS, ev.htable))
-                ev.fit()
-                ev.save_results()
+                with trace.span('subject', req=reqs.pop(subject, None)) as sp:
+                    # the wait for the prefetched load, or the load itself
+                    with trace.span('prefetch_wait'):
+                        fut = pending.pop(subject, None)
+                        ev = fut.result() if fut is not None \
+                            else self._prepare(subject)
+                    if ex is not None:
+                        start_prefetch(si + 1)
+                    if checkpoint:
+                        ev.set_config('fit_checkpoint', pjoin(
+                            self.study_path, subject,
+                            f'.amico_tpu_ckpt_{self.model_name}.npz'))
+                    ev.set_model(self.model_name)
+                    if self.model_params:
+                        ev.model.set(**self.model_params)
+                    if self.solver_params:
+                        ev.set_solver(**self.solver_params)
+                    ev.generate_kernels(lmax=self.lmax, ndirs=self.ndirs)
+                    # cross-subject warm state: subjects sharing a scheme and
+                    # model/solver params reuse one model instance (its
+                    # kernel-prep caches survive) and the resampled
+                    # KERNELS/htable -- per-subject LUT resampling is the
+                    # dominant sweep overhead once the fit itself is sub-second
+                    sig = self._warm_signature(ev)
+                    if self._warm is not None and self._warm[0] == sig:
+                        model, kernels, htable = self._warm[1]
+                        model.scheme = ev.scheme
+                        ev.model = model
+                        ev.KERNELS = kernels
+                        ev.htable = htable
+                        self.warm_reused.append(subject)
+                    else:
+                        ev.load_kernels()
+                        self._warm = (sig, (ev.model, ev.KERNELS, ev.htable))
+                    ev.fit()
+                    ev.save_results()
                 self.results[subject] = self._result_dir(subject)
-                self.seconds[subject] = time.time() - t0
+                self.seconds[subject] = sp.elapsed
             except Exception as e:
                 # distributed: the other processes are (or will be) waiting
                 # in this subject's collectives; going on would pair the

@@ -28,7 +28,10 @@ device, the tie-break's tables and the tie score), else ``scratch`` (the
 stage-2 dictionary in (ndwi, n_wm) layout and a scratch buffer, with the
 per-round budgets in the host schedule), else the first one (the
 dictionary transposed).  Each gets the production schedule packed its
-way.
+way.  K2's entry point takes a ``tile_rounds`` pointer (each tile's
+continuation rounds) since the port was traced; a variant whose
+``nneg_qp.cu`` has that word gets a null one, the launch that writes no
+count.
 
 ``--count`` counts the work K1 and K2 need on these inputs
 (:func:`amico_tpu_torch.testing.solve_work` on the first launch of each).
@@ -71,6 +74,8 @@ class Variant:
             text = f.read()
         self.rtab = 'rtab' in text
         self.scratch = self.rtab or 'scratch' in text
+        with open(os.path.join(self.csrc, 'nneg_qp.cu')) as f:
+            self.counted = 'tile_rounds' in f.read()
         out = os.path.join(os.path.dirname(cuda_build.BUILD_ROOT),
                            'kernel_bench', self.label, 'lib.so')
         t0 = time.time()
@@ -90,7 +95,8 @@ class Variant:
             15 if self.rtab else 11 if self.scratch else 10) \
             + [ci] * 6 + [cf, cf, vp, vp]
         lib.noddi_fused_launch.restype = ci
-        lib.nneg_qp_launch.argtypes = [vp] * 6 + [ci] * 3 + [cf, cf, vp, vp]
+        lib.nneg_qp_launch.argtypes = [vp] * (7 if self.counted else 6) \
+            + [ci] * 3 + [cf, cf, vp, vp]
         lib.nneg_qp_launch.restype = ci
         self.lib = lib
 
@@ -134,9 +140,10 @@ class Variant:
         C, M, n = b.shape
         x = torch.empty_like(b)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        ptrs = [G.data_ptr(), b.data_ptr(), ptr(mask), ptr(m0), ptr(x0),
+                x.data_ptr()] + ([None] if self.counted else [])
         err = self.lib.nneg_qp_launch(
-            G.data_ptr(), b.data_ptr(), ptr(mask), ptr(m0), ptr(x0),
-            x.data_ptr(), C, M, n, 0.0, lam2, sched.ctypes.data,
+            *ptrs, C, M, n, 0.0, lam2, sched.ctypes.data,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f'[{self.label}] K2 launch failed: {err}')

@@ -155,7 +155,7 @@ def test_launcher_raises_on_a_refused_launch(cuda):
     import ctypes
     from amico_tpu_torch.ops.cuda_build import Launcher
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    launch = Launcher('nneg_qp_launch', [vp] * 6 + [ci] * 3 + [cf, cf, vp])
+    launch = Launcher('nneg_qp_launch', [vp] * 7 + [ci] * 3 + [cf, cf, vp])
     G, b = qp_problems(1, 160, M=4)
     x = torch.empty_like(b)
     sched = cuda_qp._qp_sched_array(cuda_qp.qp_schedule(160))
@@ -163,7 +163,8 @@ def test_launcher_raises_on_a_refused_launch(cuda):
     with pytest.raises(RuntimeError, match='kernel launch failed '
                                            r'\(nneg_qp_launch\)'):
         launch(b.device, G.data_ptr(), b.data_ptr(), None, None, None,
-               x.data_ptr(), 1, 100_000, 160, 0.0, 0.0, sched.ctypes.data)
+               x.data_ptr(), None, 1, 100_000, 160, 0.0, 0.0,
+               sched.ctypes.data)
     assert nneg_qp_tiles.launches == before
     torch.cuda.synchronize()
 
