@@ -8,8 +8,10 @@ Same public surface, call order and config keys as the JAX package:
     ev.generate_kernels(); ev.load_kernels(); ev.fit(); ev.save_results()
 
 Host stages (NIfTI I/O, native preprocessing, LUT generation and
-resampling, scatter, map writing) are the port's copies of the JAX
-package's jax-free modules.
+resampling, map writing) are the port's copies of the JAX package's
+jax-free modules.  The fit's results are scattered into volumes where
+their rows are: on the card for a gathered one-card fit, each volume then
+brought back in one pinned copy; on the CPU otherwise.
 The fit uploads the padded float32 signal once to the ``device`` config's
 device when it fits in ``max_device_bytes`` (the JAX facade's staging
 rule); the DTI direction fit and the model's tile driver share that
@@ -51,7 +53,7 @@ from . import models as _models
 from . import pipeline as _pl
 from . import trace
 from .device import DEFAULT_DEVICE, resolve_device
-from .models.base import DEFAULT_MAX_DEVICE_BYTES, _concrete
+from .models.base import DEFAULT_MAX_DEVICE_BYTES, _concrete, _to_host
 from .parallel import dist
 
 try:
@@ -71,6 +73,16 @@ def _profiler(prof_dir: str, device: torch.device):
         acts.append(ProfilerActivity.CUDA)
     return profile(activities=acts,
                    on_trace_ready=tensorboard_trace_handler(prof_dir))
+
+
+def _kept(cache: dict, name: str, device: torch.device, make):
+    """``cache[name][device]``: the host array ``make()`` on ``device``,
+    made on a miss and kept (on the CPU, the array itself)."""
+    per = cache.setdefault(name, {})
+    t = per.get(device)
+    if t is None:
+        t = per[device] = torch.from_numpy(make()).to(device)
+    return t
 
 
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -676,7 +688,7 @@ class Evaluation:
                 dc = getattr(self, '_fit_dirs_cache', None)
                 if dc is not None and dc[0] is dkey[0] \
                         and dc[1] is dkey[1] and dc[2:5] == dkey[2:]:
-                    self.DIRs = dc[5]
+                    self.DIRs = dc[-1]
                     sp.attrs['cached'] = True
                 else:
                     y_dti = (self._staged_y_ext_dev[1][:-1]
@@ -686,7 +698,9 @@ class Evaluation:
                         self.DIRs = _pl.principal_directions(
                             y_dti, self.scheme, method, dkey[3],
                             device=device)
-                    self._fit_dirs_cache = dkey + (self.DIRs,)
+                    # ({device: DIRs there}, DIRs): the scatter keeps
+                    # its copy of the directions on the card here
+                    self._fit_dirs_cache = dkey + ({}, self.DIRs)
         if not sp.attrs['cached']:
             self._stage_time(sp)
         # the staging included, as in the JAX facade
@@ -701,10 +715,16 @@ class Evaluation:
         prof_ctx = _profiler(prof_dir, device) if prof_dir \
             else contextlib.nullcontext()
         # the 'fit' range: the benchmark attributes the kernels within it
-        # to the model fit
-        with prof_ctx, torch.profiler.record_function('fit'), \
-                trace.span('model_fit') as sp:
-            results = self.model.fit(self)
+        # to the model fit.  A single-process, meshless fit takes the tile
+        # driver's rows on the card (gathered there), to scatter them there
+        self._fit_rows_on_device = (not dist_on
+                                    and self.get_config('mesh') is None)
+        try:
+            with prof_ctx, torch.profiler.record_function('fit'), \
+                    trace.span('model_fit') as sp:
+                results = self.model.fit(self)
+        finally:
+            self._fit_rows_on_device = False
         self._stage_time(sp, 'fit')
         self.set_config('fit_time', sp.elapsed)
         LOG('   [ %s ]' % time.strftime(
@@ -720,7 +740,8 @@ class Evaluation:
             self._stage_time(sp)
             self.y = y_full
         with trace.span('scatter') as sp:
-            self.RESULTS = self._scatter_results(results, mask)
+            self.RESULTS = self._scatter_results(results, mask_sel,
+                                                 slab_cache)
         self._stage_time(sp)
 
     def _gather_signal(self, mask, slab_cache):
@@ -755,42 +776,107 @@ class Evaluation:
             dirs[bad] = 0.0
         return dirs
 
-    def _scatter_results(self, results, mask):
-        """Expand per-voxel fit outputs into full volumes."""
-        dim = self.get_config('dim')
+    def _scatter_results(self, results, mask_sel, slab_cache):
+        """Each output's rows (N, ...) as a float32 volume, zero outside the
+        mask: one ``index_copy_`` of the rows at the mask's C-order flat
+        index of its voxels (the order of ``mask == 1``) into a zeroed
+        volume, on the rows' device.  A gathered one-card fit leaves its
+        rows on the card and they are scattered there (the counter
+        ``scatter.card``, in volumes); any other fit's rows are NumPy and
+        are scattered on the CPU (``scatter.host``).  FreeWater's corrected
+        DWI is reinstated on the same device first: the b0 normalisation
+        undone and, with ``doKeepb0Intact``, the fitted signal's b0 columns
+        put back, each a float32 product, as on the host.
+
+        A card's volumes come back each in one non-blocking copy into a
+        pinned block of torch's caching host allocator, one synchronise a
+        span, and ``RESULTS`` holds NumPy views of the blocks: the pinned
+        memory in use is that of the results alive.  A re-fit takes new
+        blocks while the caller holds the old ``RESULTS``, which it never
+        overwrites; dropped, they go back to the allocator for a later
+        fit.  The flat index and the masked mean b0 stay on the card with
+        the staged signal (``slab_cache``), the directions with
+        ``_fit_dirs_cache``, so that a re-fit uploads none of them."""
+        rows = results['estimates']
+        device = rows.device if isinstance(rows, torch.Tensor) \
+            else torch.device('cpu')
+        route = 'scatter.host' if device.type == 'cpu' else 'scatter.card'
+        flat = _kept(slab_cache, '__flat_idx__', device,
+                     lambda: np.flatnonzero(mask_sel))
+        dim = tuple(self.get_config('dim'))
+
+        def scatter(v, spatial):
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.asarray(v, np.float32))
+            vol = torch.zeros((int(np.prod(spatial)),) + tuple(v.shape[1:]),
+                              dtype=torch.float32, device=device)
+            vol.index_copy_(0, flat, v.float())
+            return vol.view(tuple(spatial) + tuple(v.shape[1:]))
+
         with trace.span('scatter_maps'):
-            out = {'MAPs': _pl.scatter(np.asarray(results['estimates'],
-                                                  np.float32), mask, dim)}
-            dirs = (np.asarray(self.DIRs, np.float32)
-                    if self.DIRs is not None
-                    else np.zeros((int(np.sum(mask == 1)), 3), np.float32))
-            out['DIRs'] = _pl.scatter(dirs, mask, dim)
+            vols = {'MAPs': scatter(rows, dim),
+                    'DIRs': scatter(self._dirs_rows(device, flat.shape[0]),
+                                    dim)}
             if self.get_config('doComputeRMSE'):
-                out['RMSE'] = _pl.scatter(results['rmse'], mask, dim)
+                vols['RMSE'] = scatter(results['rmse'], dim)
             if self.get_config('doComputeNRMSE'):
-                out['NRMSE'] = _pl.scatter(results['nrmse'], mask, dim)
+                vols['NRMSE'] = scatter(results['nrmse'], dim)
             if self.model.name == 'NODDI' \
                     and self.get_config('doSaveModulatedMaps'):
-                out['MAPs_mod'] = _pl.scatter(
-                    np.asarray(results['estimates_mod'], np.float32), mask,
-                    dim)
+                vols['MAPs_mod'] = scatter(results['estimates_mod'], dim)
+            out = _to_host(vols)
+        n_vols = len(vols)
         if self.model.name == 'Free-Water' and self.get_config('doSaveCorrectedDWI'):
-            mean_b0_masked = (self.mean_b0s[mask == 1]
-                              if self.mean_b0s is not None else None)
-            # under doMergeB0 the fitted signal has its one merged b0 at
-            # column 0, not at the scheme's b0 columns
-            b0_cols = (np.array([0]) if self.get_config('doMergeB0')
-                       else self.scheme.b0_idx)
-            has_b0 = self.scheme.b0_count > 0
             with trace.span('reinstate_dwi'):
-                yc = _pl.reinstate_corrected_dwi(
-                    results['y_corrected'], self.y, mean_b0_masked, b0_cols,
-                    bool(self.get_config('doNormalizeSignal')) and has_b0,
-                    bool(self.get_config('doKeepb0Intact')) and has_b0)
-                out['DWI_corrected'] = _pl.scatter(
-                    yc.astype(np.float32), mask,
-                    self.niiDWI.shape[:3] + (yc.shape[1],))
+                yc = self._reinstate_dwi(results['y_corrected'], mask_sel,
+                                         slab_cache, device)
+                out.update(_to_host({'DWI_corrected': scatter(
+                    yc, self.niiDWI.shape[:3])}))
+            n_vols += 1
+        trace.count(route, n_vols)
         return out
+
+    def _dirs_rows(self, device, n):
+        """The directions (n, 3) float32 on ``device`` (zeros without
+        any); those of ``_fit_dirs_cache`` are kept there per device."""
+        if self.DIRs is None:
+            return torch.zeros((n, 3), dtype=torch.float32, device=device)
+        dc = getattr(self, '_fit_dirs_cache', None)
+        kept = dc[5] if dc is not None and dc[-1] is self.DIRs else {}
+        return _kept(kept, 'DIRs', device,
+                     lambda: np.asarray(self.DIRs, np.float32))
+
+    def _reinstate_dwi(self, y_corrected, mask_sel, slab_cache, device):
+        """FreeWater's corrected signal (N, nS) on ``device``, the b0
+        normalisation undone (times the masked mean b0) and, with
+        ``doKeepb0Intact``, the fitted signal's b0 columns (its column 0
+        under ``doMergeB0``) put back, also times the mean b0 where the
+        signal was normalised (reference core.py:487-498)."""
+        yc = y_corrected if isinstance(y_corrected, torch.Tensor) \
+            else torch.from_numpy(np.asarray(y_corrected))
+        has_b0 = self.scheme.b0_count > 0
+        normalized = bool(self.get_config('doNormalizeSignal')) and has_b0 \
+            and self.mean_b0s is not None
+        keep_b0 = bool(self.get_config('doKeepb0Intact')) and has_b0
+        if normalized:
+            mean_b0 = _kept(slab_cache, '__mean_b0__', device,
+                            lambda: self.mean_b0s[mask_sel])[:, None]
+            yc = yc * mean_b0
+        elif keep_b0:
+            yc = yc.clone()
+        if keep_b0:
+            cols = torch.as_tensor(
+                [0] if self.get_config('doMergeB0') else self.scheme.b0_idx,
+                dtype=torch.int64, device=device)
+            staged = self._staged_y_ext_dev
+            y = staged[1][:-1] if staged is not None \
+                and staged[1].device == device \
+                else torch.from_numpy(np.asarray(self.y)).to(device)
+            b0 = y.index_select(1, cols)
+            if normalized:
+                b0 = b0 * mean_b0
+            yc.index_copy_(1, cols, b0.to(yc.dtype))
+        return yc
 
     # --------------------------------------------------------- save_results
     def save_results(self, path_suffix=None, save_dir_avg=False):

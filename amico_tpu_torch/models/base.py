@@ -13,7 +13,8 @@ with the same chunking and maps.  As in the JAX driver, ``tile_size='auto'``
 sizes the tiles of the tile kernels with ``engine.auto_tile_size``, on the
 H100 ladder and per-tile overhead of the model's kernel.  In gathered mode
 on one device each chunk's outputs are written in voxel order on the device
-as soon as it is computed, and copied to the host once at the end; the
+as soon as it is computed, and copied to the host once at the end (on a
+card, unless the facade's fit takes them there); the
 streamed, mesh and checkpointed fits copy each chunk's outputs to the host
 as soon as it is computed and untile them there.  As in the JAX driver, a
 re-fit of the same objects reuses the LUT quantization and tile plans
@@ -105,19 +106,25 @@ def _concrete(device) -> torch.device:
     return device
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A CUDA tensor's copy in pinned host memory (from the caching host
-    allocator, which keeps the block for the next fit once the array is
-    dropped), as a NumPy array; a CPU tensor as it is.  Into pinned memory
-    the copy of a FreeWater fit's (409,600, 99) corrected DWI took 3.1 ms
-    against 63.9 into pageable memory on an H100 80GB HBM3 at 700 W
-    (tools/tile_widths.py --d2h; PERF.md)."""
-    if t.device.type != 'cuda':
-        return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
-    return host.numpy()
+def _to_host(tensors: dict) -> dict:
+    """Each tensor of ``tensors`` as a NumPy array: a CUDA tensor's in one
+    non-blocking copy into pinned host memory (from the caching host
+    allocator, which keeps the block for a later copy once the array is
+    dropped), after one synchronise of the current streams; a CPU tensor as
+    it is.  Into pinned memory the copy of a FreeWater fit's (409,600, 99)
+    corrected DWI took 3.1 ms against 63.9 into pageable memory on an H100
+    80GB HBM3 at 700 W (tools/tile_widths.py --d2h; PERF.md)."""
+    out, cards = {}, set()
+    for k, t in tensors.items():
+        if t.device.type == 'cuda':
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            cards.add(t.device)
+            t = host
+        out[k] = t
+    for d in cards:
+        torch.cuda.current_stream(d).synchronize()
+    return {k: t.numpy() for k, t in out.items()}
 
 
 def _same_plan(a, b) -> bool:
@@ -356,7 +363,10 @@ class BaseModel(ABC):
         outputs are written in voxel order into an (N+1, ...) buffer on the
         device, on the chunk's stream (``index_copy_`` by the plan's
         permutation; the padding slots land in row N, dropped), and each
-        buffer is copied to the host once after the last chunk.  Otherwise
+        buffer is copied to the host once after the last chunk; on a CUDA
+        card, an ``evaluation`` whose ``_fit_rows_on_device`` is true (the
+        facade's single-process, meshless fit) gets the (N, ...) rows on
+        the card instead, as tensors.  Otherwise
         each chunk's outputs are copied into a tiled host buffer (pinned
         for a CUDA device) on the chunk's stream as soon as it is computed,
         and untiled on the host at the end.  Both give the same maps, bit
@@ -541,7 +551,12 @@ class BaseModel(ABC):
         # stream are complete, and freed only after their copies below
         with trace.span('pull') as sp:
             if gathered:
-                out = {k: _to_host(v[:N]) for k, v in out_dev.items()}
+                out = {k: v[:N] for k, v in out_dev.items()}
+                # the facade's own fit asks for the rows on the card, where
+                # it scatters them into volumes
+                if devices[0].type != 'cuda' or not getattr(
+                        evaluation, '_fit_rows_on_device', False):
+                    out = _to_host(out)
                 del out_dev
         timers['pull_s'] = sp.elapsed
         if ckpt_path and os.path.isfile(ckpt_path):

@@ -1,6 +1,10 @@
 """Copy of ``amico_tpu/pipeline.py`` for the port, which imports nothing of
 ``amico_tpu``, with its own :func:`principal_directions` (the OLS DTI fit on
-PyTorch); every other stage is the original's NumPy.
+PyTorch) and without the original's ``scatter`` and
+``reinstate_corrected_dwi``: the facade scatters the fit's results into
+volumes, and reinstates FreeWater's corrected DWI, in torch on the device
+that holds the rows (``core.Evaluation._scatter_results``).  Every other
+stage is the original's NumPy.
 
 Pure pipeline stages for one fitting run.
 
@@ -131,7 +135,8 @@ def spherical_mean(img: np.ndarray, scheme: Scheme,
 def masked_voxels(img: np.ndarray, mask: np.ndarray) -> np.ndarray:
     """Flatten the voxels selected by ``mask`` into an ``(N, nS)`` float
     matrix with negative samples clipped to zero (reference core.py:451-452).
-    Voxel order is C order over the mask -- the same order ``scatter`` uses.
+    Voxel order is C order over the mask -- the same order the facade's
+    scatter of the results uses.
 
     The dtype follows the input volume (float32 on the production path):
     every downstream consumer -- the f32 device staging, the f32 DTI fit,
@@ -186,34 +191,6 @@ def resolve_dti_method(method: str) -> str:
     if method in ('RT', 'restore'):
         return 'RESTORE'
     return 'OLS' if method == 'LS' else method
-
-
-def scatter(values: np.ndarray, mask: np.ndarray,
-            dim: tuple) -> np.ndarray:
-    """Place per-voxel results back into a full volume, zero outside the
-    mask (reference core.py:472-498).  ``values`` may be (N,) or (N, k)."""
-    shape = tuple(dim[:3]) + (values.shape[1:] if values.ndim > 1 else ())
-    vol = np.zeros(shape, dtype=np.float32)
-    vol[mask == 1] = values
-    return vol
-
-
-def reinstate_corrected_dwi(y_corrected: np.ndarray, y: np.ndarray,
-                            mean_b0_masked: np.ndarray | None,
-                            b0_idx: np.ndarray, normalized: bool,
-                            keep_b0: bool) -> np.ndarray:
-    """Undo b0 normalization on the FreeWater-corrected signal and, if asked,
-    restore the original (un-fitted) b0 samples (reference core.py:487-498)."""
-    out = y_corrected
-    if normalized and mean_b0_masked is not None:
-        out = out * mean_b0_masked.reshape(-1, 1)
-        if keep_b0:
-            out = out.copy()
-            out[:, b0_idx] = y[:, b0_idx] * mean_b0_masked.reshape(-1, 1)
-    elif keep_b0:
-        out = out.copy()
-        out[:, b0_idx] = y[:, b0_idx]
-    return out
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The CUDA kernels (the fused NODDI solve K1, the tile QP K2, the build-cache
 probe T1) against their plain PyTorch twins, both on the card, and the
 kernels' launch counters; the stagewise solver on the card against the CPU,
-and K2 against it on CylinderZeppelinBall tiles.  Every test needs a CUDA
+and K2 against it on CylinderZeppelinBall tiles; the facade's scatter of
+the results on the card against the host's.  Every test needs a CUDA
 card and skips without one; the module imports no JAX, so it also runs where
 JAX is absent:
 
@@ -602,6 +603,56 @@ def test_mesh_fit_matches_one_card(freewater):
     assert model._last_fit_devices == [
         torch.device('cuda', i) for i in range(min(mesh.size, n_chunks))]
     assert np.array_equal(got['estimates'], one['estimates'])
+
+
+@pytest.fixture(scope='module')
+def scatter_study(cuda, tmp_path_factory):
+    from test_torch_scatter import write_subject
+    root = tmp_path_factory.mktemp('cuda_scatter')
+    os.environ['AMICO_TPU_HOME'] = str(root / 'home')
+    write_subject(str(root / 'study' / 'subj'))
+    return str(root / 'study')
+
+
+@pytest.mark.parametrize('model', ['FreeWater', 'NODDI'])
+def test_facade_scatters_on_the_card(scatter_study, tmp_path, monkeypatch,
+                                     model):
+    """The facade's gathered fit on the card keeps the model's rows there
+    and scatters them there: every volume is counted as scattered on the
+    card and none on the host, and each is, bit for bit, the NumPy stages'
+    volume of the same rows (tests/test_torch_scatter.py's oracles) and
+    the host route's volume of a checkpointed fit.  RESULTS are views of
+    pinned memory, and the previous fit's survive the next fit."""
+    from test_torch_scatter import (FW_LAMBDA2, RowSpy,
+                                          assert_bits_equal,
+                                          assert_results_are,
+                                          expected_volumes, fit_counts,
+                                          fit_subject)
+    ev = fit_subject(scatter_study, model, device='cuda',
+                     lambda2=FW_LAMBDA2[0])
+    spy = RowSpy(ev.model, monkeypatch)
+    counts = fit_counts(ev)
+    assert spy.devices == {'cuda'}
+    n_vols = len(ev.RESULTS)
+    assert counts['scatter.card'] == n_vols and 'scatter.host' not in counts
+    assert_results_are(ev, expected_volumes(ev, spy.rows))
+    assert all(torch.from_numpy(v).is_pinned() for v in ev.RESULTS.values())
+    first = dict(ev.RESULTS)
+    kept = {k: v.copy() for k, v in first.items()}
+    ev.set_solver(lambda2=FW_LAMBDA2[1])
+    ev.fit()
+    assert_results_are(ev, expected_volumes(ev, spy.rows))
+    for k, v in first.items():
+        assert_bits_equal(v, kept[k], k)
+        assert not np.shares_memory(v, ev.RESULTS[k]), k
+    assert not np.array_equal(ev.RESULTS['MAPs'], kept['MAPs'])
+    card = {k: v.copy() for k, v in ev.RESULTS.items()}
+    ev.set_config('fit_checkpoint', str(tmp_path / 'fit.ckpt.npz'))
+    counts = fit_counts(ev)
+    assert 'numpy' in spy.devices
+    assert counts['scatter.host'] == n_vols and 'scatter.card' not in counts
+    for k, v in card.items():
+        assert_bits_equal(ev.RESULTS[k], v, k)
 
 
 # --------------------------------------------------- T1: build-cache probe
