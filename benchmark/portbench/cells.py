@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from reference import dictionary, pipeline
+from reference import dictionary, module, pipeline
 
 from . import arith, judge, nifti, registry, synth, trace, work
 
@@ -44,20 +44,24 @@ class Run:
                 if s['name'] == name and lo <= s['t0'] <= hi]
 
 
-def reference_dictionary(config: dict, bvals, bvecs) -> dict:
+def reference_dictionary(config: dict, bvals, bvecs, pulses=None) -> dict:
     """The reference's dictionary, kept in the checkout's cache by a key of
-    the configuration, the protocol and the recipe's source."""
+    the configuration, the protocol and the recipe's source: the shared
+    recipe and the model's own module."""
     h = hashlib.sha256(json.dumps(config, sort_keys=True).encode())
-    with open(dictionary.__file__, 'rb') as f:
-        h.update(f.read())
+    for src in (dictionary, module(config['reference'])):
+        with open(src.__file__, 'rb') as f:
+            h.update(f.read())
     h.update(np.ascontiguousarray(bvals).tobytes())
     h.update(np.ascontiguousarray(bvecs).tobytes())
+    if pulses is not None:
+        h.update(np.ascontiguousarray(pulses).tobytes())
     path = os.path.join(CACHE, 'reference',
                         f'{config["name"]}.{h.hexdigest()[:16]}.npz')
     if os.path.isfile(path):
         with np.load(path) as z:
             return {k: z[k] for k in z.files}
-    D = dictionary.build(config, bvals, bvecs)
+    D = dictionary.build(config, bvals, bvecs, pulses)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f'{path}.{os.getpid()}.tmp.npz'
     np.savez(tmp, **D)
@@ -66,8 +70,12 @@ def reference_dictionary(config: dict, bvals, bvecs) -> dict:
 
 
 def write_subject(path: str, config: dict, vol: torch.Tensor, bvals, bvecs,
-                  mask: np.ndarray) -> None:
-    """DWI.nii (float32), DWI.scheme (``VERSION: BVECTOR``) and mask.nii."""
+                  mask: np.ndarray, pulses=None) -> None:
+    """DWI.nii (float32), DWI.scheme and mask.nii.  The scheme is
+    ``VERSION: BVECTOR`` (x, y, z, b) without ``pulses``, and with them
+    ``VERSION: STEJSKALTANNER`` (x, y, z, G, Delta, delta, TE) written to
+    full float64 precision, so that the program derives the harness's
+    b-values from it."""
     os.makedirs(path, exist_ok=True)
     dims = tuple(config['protocol']['matrix'])
     mm = float(config['protocol']['voxel_mm'])
@@ -75,9 +83,13 @@ def write_subject(path: str, config: dict, vol: torch.Tensor, bvals, bvecs,
                 dims + (len(bvals),), mm)
     nifti.write(os.path.join(path, 'mask.nii'), mask.astype(np.uint8).T,
                 dims, mm)
-    np.savetxt(os.path.join(path, 'DWI.scheme'),
-               np.column_stack([bvecs, bvals]), fmt='%.6f',
-               header='VERSION: BVECTOR', comments='')
+    scheme = os.path.join(path, 'DWI.scheme')
+    if pulses is None:
+        np.savetxt(scheme, np.column_stack([bvecs, bvals]), fmt='%.6f',
+                   header='VERSION: BVECTOR', comments='')
+    else:
+        np.savetxt(scheme, np.column_stack([bvecs, pulses]), fmt='%.17g',
+                   header='VERSION: STEJSKALTANNER', comments='')
 
 
 def lambda_grid(config: dict, traffic: dict) -> list[dict]:
@@ -139,7 +151,7 @@ class Cell:
             tempfile.gettempdir(), 'portbench', config['name'],
             traffic['name'])
         self.run = Run(traffic['kind'])
-        self.bvals, self.bvecs = synth.protocol(config)
+        self.bvals, self.bvecs, self.pulses = synth.protocol(config)
         self.mask = synth.mask(config)
         self.n_vox = int(self.mask.sum())
         self.xyz = np.argwhere(self.mask)          # C order: the fit's order
@@ -159,7 +171,8 @@ class Cell:
         amico_tpu_torch.set_verbose(1)
         shutil.rmtree(self.work, ignore_errors=True)
         os.makedirs(self.work)
-        self.D = reference_dictionary(self.config, self.bvals, self.bvecs)
+        self.D = reference_dictionary(self.config, self.bvals, self.bvecs,
+                                      self.pulses)
         f32 = dict(dtype=torch.float32, device=self.device)
         aniso = torch.as_tensor(self.D['aniso'], **f32)
         iso = torch.as_tensor(self.D['iso'], **f32)
@@ -172,7 +185,7 @@ class Cell:
             if write:
                 write_subject(os.path.join(self.work, 'pool', f'p{p}'),
                               self.config, vol, self.bvals, self.bvecs,
-                              self.mask)
+                              self.mask, self.pulses)
             sel = judge.sample(self.n_vox, k // n_pool, self.seed + p)
             self.pool_sel.append(sel)
             self.pool_raw.append(

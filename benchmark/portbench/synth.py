@@ -1,16 +1,19 @@
 """The benchmark's inputs, made from ``--seed`` on the card with plain torch.
 
-The protocol and the mask are fixed by the configuration; the signal of
-each masked voxel is drawn from the seed: a sparse mixture of the
-configuration's own dictionary atoms (the reference's dictionary is the
-forward model) at one of the LUT directions, scaled by S0, with Rician
-noise.  Every seed gives the same voxel count and protocol, so the work is
-the same and only the values move.
+The protocol (with each sample's pulse timing, where its shells give it)
+and the mask are fixed by the configuration; the signal of each masked
+voxel is drawn from the seed: a sparse mixture of the configuration's own
+dictionary atoms (the reference's dictionary is the forward model) at one
+of the LUT directions, scaled by S0, with Rician noise.  Every seed gives
+the same voxel count and protocol, so the work is the same and only the
+values move.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from reference.dictionary import GAMMA
 
 GOLDEN = (1 + 5 ** 0.5) / 2
 
@@ -26,24 +29,66 @@ def hemisphere(n: int, turn: float = 0.0) -> np.ndarray:
     return np.round(np.stack([r * np.cos(phi), r * np.sin(phi), z], 1), 6)
 
 
-def protocol(config: dict) -> tuple[np.ndarray, np.ndarray]:
-    """(bvals (nS,), bvecs (nS, 3)): ``blocks`` blocks, each of an equal
-    share of the b0s and of every shell's directions."""
+def _timing(shell: list) -> dict | None:
+    """A shell's pulse timing in seconds, ``[b, n, {"Delta": s, "delta":
+    s, "TE": s}]`` (TE by default Delta + delta), or None for ``[b, n]``."""
+    if len(shell) < 3:
+        return None
+    t = shell[2]
+    Delta, delta = float(t['Delta']), float(t['delta'])
+    return {'Delta': Delta, 'delta': delta,
+            'TE': float(t.get('TE', Delta + delta))}
+
+
+def gradient(b: float, Delta: float, delta: float) -> float:
+    """G (T/m) of a PGSE pulse pair that gives b (s/mm^2), as AMICO's
+    ``sandi2scheme`` derives it."""
+    return float(np.sqrt(b * 1e6 / (GAMMA ** 2 * delta ** 2
+                                    * (Delta - delta / 3.0))))
+
+
+def b_values(pulses: np.ndarray) -> np.ndarray:
+    """b (s/mm^2) of each (G, Delta, delta, TE) row, as a STEJSKALTANNER
+    scheme's reader derives it (AMICO ``scheme.py:79``)."""
+    G, Delta, delta = pulses[:, 0], pulses[:, 1], pulses[:, 2]
+    return (GAMMA * G * delta) ** 2 * (Delta - delta / 3.0) * 1e-6
+
+
+def protocol(config: dict):
+    """(bvals (nS,), bvecs (nS, 3), pulses (nS, 4) or None): ``blocks``
+    blocks, each of an equal share of the b0s and of every shell's
+    directions.  Where the shells give their timing, ``pulses`` holds each
+    sample's G, Delta, delta and TE (the b0s take the first shell's
+    timing), and the b-values are those derived back from it
+    (``b_values``), as the program derives them from the scheme; else
+    ``pulses`` is None."""
     p = config['protocol']
     blocks = int(p['blocks'])
-    shells = [(float(b), hemisphere(int(n), np.pi / GOLDEN * k))
-              for k, (b, n) in enumerate(p['shells'])]
-    bvals, bvecs = [], []
+    shells = [(float(s[0]), hemisphere(int(s[1]), np.pi / GOLDEN * k),
+               _timing(s)) for k, s in enumerate(p['shells'])]
+    timed = [t is not None for *_, t in shells]
+    if any(timed) and not all(timed):
+        raise ValueError('every shell of a protocol or none gives its timing')
+    bvals, bvecs, pulses = [], [], []
     for blk in range(blocks):
         for _ in range(int(p['b0']) // blocks):
             bvals.append(0.0)
             bvecs.append(np.zeros(3))
-        for b, dirs in shells:
+            if all(timed):
+                t = shells[0][2]
+                pulses.append((0.0, t['Delta'], t['delta'], t['TE']))
+        for b, dirs, t in shells:
             per = len(dirs) // blocks
             for d in dirs[blk * per:(blk + 1) * per]:
                 bvals.append(b)
                 bvecs.append(d)
-    return np.array(bvals), np.array(bvecs)
+                if t is not None:
+                    pulses.append((gradient(b, t['Delta'], t['delta']),
+                                   t['Delta'], t['delta'], t['TE']))
+    if not all(timed):
+        return np.array(bvals), np.array(bvecs), None
+    pulses = np.array(pulses)
+    return b_values(pulses), np.array(bvecs), pulses
 
 
 def mask(config: dict) -> np.ndarray:

@@ -1,16 +1,17 @@
 """The least work of a fit's solve, from the configuration's shapes alone.
 
 Whatever kernel computes the solve, it has to read each voxel's signal
-once, the dictionary once and write each voxel's outputs once, and it has
-to form at least one projection ``A'y`` and one Gram-vector product per
-stage.  NODDI has two full stages (the whole dictionary on all samples;
-the white-matter atoms on the DWI samples); its debias reuses the first
-stage's projection on a data-dependent support, counted as nothing.
-FreeWater has one stage; with the corrected DWI it also writes nS floats a
-voxel.  The count does not depend on the program, so a later kernel that
-is renamed, fused or replaced is held to the same work.
+once, the dictionary once and write each voxel's outputs once (the maps,
+and with the corrected DWI nS floats more), and it has to form at least
+one projection ``A'y`` and one Gram-vector product per stage.  The atom
+counts and the stages, as (rows, atoms) pairs, are the model's own
+(``work`` in ``reference/<reference>.py``).  The count does not depend on
+the program, so a later kernel that is renamed, fused or replaced is held
+to the same work.
 """
 from __future__ import annotations
+
+from reference import module
 
 # NVIDIA H100 SXM data sheet, 700 W: float32 outside the tensor cores, and
 # HBM3 bandwidth
@@ -20,16 +21,12 @@ PEAK_BYTES_S = 3.35e12
 
 def shapes(config: dict) -> dict:
     p = config['protocol']
-    n_b0 = int(p['b0'])
-    n_dwi = sum(int(n) for _, n in p['shells'])
-    mp = config['model_params']
-    if config['reference'] == 'noddi':
-        n_aniso = len(mp['IC_ODs']) * len(mp['IC_VFs'])
-        n_iso, n_maps = 1, 3
-    else:
-        n_aniso, n_iso, n_maps = len(mp['d_perps']), len(mp['d_isos']), 2
-    return dict(nS=n_b0 + n_dwi, n_dwi=n_dwi, n_aniso=n_aniso, n_iso=n_iso,
-                n_maps=n_maps, ndirs=int(config['lut']['ndirs']))
+    n_dwi = sum(int(shell[1]) for shell in p['shells'])
+    nS = int(p['b0']) + n_dwi
+    w = module(config['reference']).work(config['model_params'], nS, n_dwi)
+    return dict(nS=nS, n_dwi=n_dwi, n_aniso=int(w['n_aniso']),
+                n_iso=int(w['n_iso']), stages=list(w['stages']),
+                n_maps=len(config['maps']), ndirs=int(config['lut']['ndirs']))
 
 
 def least_work(config: dict, n_voxels: int, n_fits: int,
@@ -37,9 +34,8 @@ def least_work(config: dict, n_voxels: int, n_fits: int,
     """(operations, bytes) of ``n_fits`` solves of ``n_voxels`` voxels."""
     s = shapes(config)
     na = s['n_aniso'] + s['n_iso']
-    flops = 2.0 * (s['nS'] * na + na * na)
-    if config['reference'] == 'noddi':
-        flops += 2.0 * (s['n_dwi'] * s['n_aniso'] + s['n_aniso'] ** 2)
+    flops = sum(2.0 * (rows * atoms + atoms * atoms)
+                for rows, atoms in s['stages'])
     out_floats = s['n_maps'] + (s['nS'] if corrected_dwi else 0)
     per_fit_bytes = 4.0 * (n_voxels * (s['nS'] + out_floats)
                            + s['ndirs'] * s['nS'] * na)

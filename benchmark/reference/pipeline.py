@@ -4,7 +4,7 @@ path, worked out again in float64 NumPy from the raw signal.
 For each voxel: the b0 normalisation (division by the mean of the b=0
 samples), the OLS diffusion tensor on the log signal and its principal
 eigenvector, AMICO's direction quantizer, then the model's solve
-(``reference/<model>.py``) on the dictionary of that LUT direction.
+(``reference/<reference>.py``) on the dictionary of that LUT direction.
 
 ``precision='tf32'`` is the control: every operand of a product (the
 signal, the dictionary, the DTI design) rounded to TF32's 10-bit mantissa
@@ -12,11 +12,9 @@ before it is used, as a float32 product with TF32 allowed would round it.
 """
 from __future__ import annotations
 
-import importlib
-
 import numpy as np
 
-from . import dictionary
+from . import dictionary, module
 
 
 def to_tf32(a: np.ndarray) -> np.ndarray:
@@ -65,7 +63,7 @@ def solve_voxels(config: dict, D: dict, raw: np.ndarray, bvals, bvecs,
     y = np.clip(y, 0, None)
     dirs = dti_directions(y, bvals, bvecs, q)
     lut = dictionary.lut_index(dirs, D['htable'])
-    model = importlib.import_module(f'{__package__}.{config["reference"]}')
-    out = model.solve(config, D, q(y), lut, lambdas, want_dwi, q, bvals)
+    out = module(config['reference']).solve(config, D, q(y), lut, lambdas,
+                                            want_dwi, q, bvals)
     out['b0'] = b0
     return out

@@ -14,26 +14,32 @@ sys.path[:0] = [p for p in (BENCH, os.path.dirname(BENCH))
                 if p not in sys.path]
 
 
+# NODDI's atom grid cut to 3 x 3 (``noddi_grid`` keeps it whole)
+GRID_CUTS = {'noddi_ukb': {'IC_VFs': [0.2, 0.5, 0.8],
+                           'IC_ODs': [0.1, 0.4, 0.8]}}
+
+
 def small_bench(dst: str, noddi_grid: bool = False) -> dict:
-    """A copy of the benchmark folder (metrics, traffic, configurations
-    named ``<name>_tiny``) at a size the CPU runs in seconds: a 12x12x8
-    matrix, 256 voxels checked, two-subject sweeps, and NODDI on a 3 x 3
-    grid unless ``noddi_grid``.  The limits are the real ones.  Returns the
-    copy's BENCHMARK.json, whose cells use these configurations."""
+    """A copy of the benchmark folder (metrics, traffic, and every
+    configuration of ``configs/`` named ``<name>_tiny``) at a size the CPU
+    runs in seconds: a 12x12x8 matrix, 256 voxels checked, two-subject
+    sweeps, and NODDI on a 3 x 3 grid unless ``noddi_grid``.  The limits
+    are the real ones.  Returns the copy's BENCHMARK.json, whose cells use
+    these configurations."""
     for d in ('metrics', 'traffic'):
         shutil.copytree(os.path.join(BENCH, d), os.path.join(dst, d))
     os.makedirs(os.path.join(dst, 'configs'))
-    for n in ('noddi_ukb', 'freewater_human'):
-        with open(os.path.join(BENCH, 'configs', n + '.json')) as f:
-            c = json.load(f)
+    for n in sorted(f[:-len('.json')] for f in os.listdir(
+            os.path.join(BENCH, 'configs')) if f.endswith('.json')):
+        with open(os.path.join(BENCH, 'configs', n + '.json')) as fh:
+            c = json.load(fh)
         c['protocol']['matrix'] = [12, 12, 8]
         c['mask']['semi_axes'] = [5.0, 5.0, 3.5]
-        if n == 'noddi_ukb' and not noddi_grid:
-            c['model_params']['IC_VFs'] = [0.2, 0.5, 0.8]
-            c['model_params']['IC_ODs'] = [0.1, 0.4, 0.8]
+        if not noddi_grid:
+            c['model_params'].update(GRID_CUTS.get(n, {}))
         c['check']['voxels'] = 256
-        with open(os.path.join(dst, 'configs', n + '_tiny.json'), 'w') as f:
-            json.dump(c, f)
+        with open(os.path.join(dst, 'configs', n + '_tiny.json'), 'w') as fh:
+            json.dump(c, fh)
     tp = os.path.join(dst, 'traffic', 'study.json')
     with open(tp) as f:
         t = json.load(f)

@@ -4,6 +4,7 @@ repository's BENCHMARK.json names only pieces that exist."""
 import json
 import os
 
+import reference
 from conftest import BENCH
 from portbench import registry
 
@@ -37,8 +38,11 @@ def test_benchmark_json_names_existing_pieces():
     root = os.path.dirname(BENCH)
     for c in bench['configs']:
         assert os.path.isfile(os.path.join(root, c['file']))
-        assert registry.config(c['name'])['reference'] in (
-            'noddi', 'freewater')
+        ref = registry.config(c['name'])['reference']
+        assert os.path.isfile(os.path.join(BENCH, 'reference', ref + '.py'))
+        mod = reference.module(ref)
+        assert all(callable(getattr(mod, f, None))
+                   for f in ('atoms', 'work', 'solve'))
     for w in bench['workloads']:
         registry.config(w['config'])
         assert registry.traffic(w['traffic'])['kind'] in ('refit', 'study')

@@ -17,7 +17,8 @@ def _small():
 def test_protocol_and_mask():
     for name, nS in (('noddi_ukb', 105), ('freewater_human', 55)):
         c = registry.config(name)
-        b, g = synth.protocol(c)
+        b, g, t = synth.protocol(c)
+        assert t is None
         assert b.shape == (nS,) and (b == 0).sum() == 5
         assert np.allclose(np.linalg.norm(g[b > 0], axis=1), 1, atol=1e-5)
         assert (b[:1 + (nS - 5) // 5] == 0).sum() == 1     # blocks interleave
@@ -26,7 +27,7 @@ def test_protocol_and_mask():
 
 def test_subject_is_a_function_of_the_seed():
     c = _small()
-    b, g = synth.protocol(c)
+    b, g, _ = synth.protocol(c)
     D = dictionary.build(c, b, g)
     an = torch.as_tensor(D['aniso'], dtype=torch.float32)
     iso = torch.as_tensor(D['iso'], dtype=torch.float32)

@@ -4,13 +4,14 @@ import pytest
 from portbench import work
 
 
-def _config(ref, **mp):
+def _config(ref, n_maps, **mp):
     return {'reference': ref, 'model_params': mp, 'lut': {'ndirs': 2},
+            'maps': ['m'] * n_maps,
             'protocol': {'b0': 1, 'shells': [[1000.0, 2], [2000.0, 1]]}}
 
 
 def test_noddi_counts_two_stages():
-    c = _config('noddi', IC_ODs=[0.1, 0.2], IC_VFs=[0.5])   # 2 + 1 atoms
+    c = _config('noddi', 3, IC_ODs=[0.1, 0.2], IC_VFs=[0.5])   # 2 + 1 atoms
     flops, nbytes = work.least_work(c, n_voxels=5, n_fits=2,
                                     corrected_dwi=False)
     # stage 1: 2 (nS 4 x 3 atoms + 3^2); stage 2: 2 (3 DWI x 2 + 2^2)
@@ -20,7 +21,7 @@ def test_noddi_counts_two_stages():
 
 
 def test_freewater_with_corrected_dwi():
-    c = _config('freewater', d_perps=[1e-4, 2e-4], d_isos=[3e-3])
+    c = _config('freewater', 2, d_perps=[1e-4, 2e-4], d_isos=[3e-3])
     flops, nbytes = work.least_work(c, 10, 1, corrected_dwi=True)
     assert flops == 10 * 2 * (4 * 3 + 9)
     assert nbytes == 4 * (10 * (4 + 2 + 4) + 2 * 4 * 3)
