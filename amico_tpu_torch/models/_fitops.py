@@ -14,9 +14,13 @@ def predict(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, A.transpose(-1, -2))
 
 
-def project(A: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """b = A'y per tile: A (C, nS, na), Y (C, M, nS) -> (C, M, na)."""
-    return torch.matmul(Y, A)
+def project(A: torch.Tensor, Y: torch.Tensor, dtype=None) -> torch.Tensor:
+    """b = A'y per tile: A (C, nS, na), Y (C, M, nS) -> (C, M, na), in Y's
+    dtype.  With ``dtype`` the products are summed in that precision and
+    rounded once at the end."""
+    if dtype is None:
+        return torch.matmul(Y, A)
+    return torch.matmul(Y.to(dtype), A.to(dtype)).to(Y.dtype)
 
 
 def error_maps(A, x, Y, compute_rmse: bool, compute_nrmse: bool) -> dict:
@@ -35,7 +39,7 @@ def error_maps(A, x, Y, compute_rmse: bool, compute_nrmse: bool) -> dict:
 
 
 def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
-                backend: str = 'pallas', m0=None, x0=None):
+                backend: str = 'pallas', m0=None, x0=None, valid=None):
     """Per-tile QP solve: G (C, n, n), b (C, M, n), L (C,) -> x (C, M, n).
 
     'pallas' runs the tile QP (``ops.cuda_qp.nneg_qp_tiles``: the CUDA
@@ -45,8 +49,10 @@ def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
     ``L[:, None]``, as the JAX package does.  ``m0``/``x0`` warm-start the
     active-set rounds and skip FISTA.  While the port is traced, the tile
     QP's continuation rounds, summed on the device, and its tiles go to
-    the counters ``k2.rounds`` and ``k2.tiles`` (the tile driver reads the
-    device sum after its synchronise)."""
+    the counters ``k2.rounds`` and ``k2.tiles``; with ``valid`` (C, M), the
+    atoms with x > 0 of the valid voxels and those voxels, summed on the
+    device, go to ``k2.support`` and ``k2.voxels`` (the tile driver reads
+    the device sums after its synchronise)."""
     kw = dict(solver_kw or {})
     if backend == 'xla':
         return nneg_qp_batch(G[:, None], b, lam1, lam2, mask=mask,
@@ -61,4 +67,7 @@ def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
                       tile_rounds=rounds, **kw)
     trace.count_on_device('k2.rounds', rounds.sum())
     trace.count('k2.tiles', b.shape[0])
+    if valid is not None:
+        trace.count_on_device('k2.support', ((x > 0) & valid[..., None]).sum())
+        trace.count_on_device('k2.voxels', valid.sum())
     return x

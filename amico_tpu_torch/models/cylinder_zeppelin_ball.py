@@ -8,7 +8,8 @@ STEJSKALTANNER scheme.  ``set``, ``get_params``, ``set_solver``,
 ``generate`` and ``resample`` are the JAX package's, in NumPy over the
 shared ``lut``/``synthesis`` modules.  ``fit`` builds the per-direction
 dictionaries, Grams and Lipschitz constants once (:meth:`prepare`), then
-per chunk gathers the tiles' dictionaries, forms ``b = A'y`` and solves
+per chunk gathers the tiles' dictionaries, forms ``b = A'y`` (summed in
+float64, see :meth:`prepare`) and solves
 (:func:`amico_tpu_torch.models._fitops.solve_tiles`).  ``'pallas'`` runs
 the tile QP (the CUDA kernel on a CUDA device, its twin on the CPU),
 ``'xla'`` the stagewise solver.  ``backend='auto'`` resolves to the tile QP
@@ -165,10 +166,16 @@ class CylinderZeppelinBall(BaseModel):
         either package's ``resample`` returns it): per-direction
         dictionaries ``A_all`` (ndirs, nS, n) with the cylinders, zeppelins
         and ball in that order, their Grams ``G_all`` (ndirs, n, n) and
-        largest eigenvalues ``L_all`` (ndirs,); all float32."""
+        largest eigenvalues ``L_all`` (ndirs,); all float32.  The Grams are
+        summed in float64 and rounded once, as ``fit`` sums each ``A'y``:
+        the 21 cylinders are nearly collinear, so that on a long protocol
+        (850 samples at two diffusion times) the ridge-regularised Gram's
+        condition number reaches ~1,300 at lambda2 = 4, and float32's
+        rounding of the sums over the samples set most of the maps' error
+        (PERF.md)."""
         A_all = torch.as_tensor(czb_dictionary(kernels), dtype=torch.float32,
                                 device=torch.device(device)).contiguous()
-        G_all = gram(A_all)
+        G_all = gram(A_all.double()).float()
         return {'A_all': A_all, 'G_all': G_all,
                 'L_all': power_iteration_L(G_all)}
 
@@ -190,9 +197,10 @@ class CylinderZeppelinBall(BaseModel):
 
             def fit_chunk(Y, dirs, valid):
                 A = c['A_all'][dirs]                       # (C, nS, n)
-                x = solve_tiles(c['G_all'][dirs], project(A, Y),
-                                c['L_all'][dirs], lam1, lam2,
-                                solver_kw=solver_kw, backend=backend)
+                b = project(A, Y, torch.float64)
+                x = solve_tiles(c['G_all'][dirs], b, c['L_all'][dirs], lam1,
+                                lam2, solver_kw=solver_kw, backend=backend,
+                                valid=valid)
                 out = {'estimates': czb_estimates(x, Rs, n_perp)
                        * valid[..., None].to(x.dtype)}
                 out.update(error_maps(A, x, Y, configs['compute_rmse'],

@@ -174,7 +174,8 @@ class FreeWater(BaseModel):
                 A = c['A_all'][dirs]                       # (C, nS, n)
                 x = solve_tiles(c['G_all'][dirs], project(A, Y),
                                 c['L_all'][dirs], lam1, lam2,
-                                solver_kw=solver_kw, backend=backend)
+                                solver_kw=solver_kw, backend=backend,
+                                valid=valid)
                 x_sum = x.sum(-1) + 1e-16
                 v = x[..., :n_perp].sum(-1) / x_sum
                 maps = [v, 1.0 - v]
