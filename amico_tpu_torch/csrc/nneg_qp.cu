@@ -13,15 +13,24 @@
 //     masked CG at budget cg[r] with a ratio-test step back and a prune
 //     below tol*max|b_eff|, then adds the top add_k violated atoms;
 //   with `converge`, continuation rounds at budget cont_cg while the tile
-//     is not done (at most cont_rounds): done once no voxel of the tile
-//     adds an atom or changes its working set in a round, or once x moves
-//     by at most tol * the tile's largest max|b_eff| anywhere in the tile.
+//     is not done (at most cont_rounds): done once each voxel of the tile
+//     is stable (adds no atom and keeps its working set in a round) or
+//     stalled (a round returns it to the working set of one of its last
+//     QP_STALL_ROUNDS rounds, or to its anchor, the set after its last
+//     round that lowered its objective by more than `stall` relative, and
+//     its objective is no lower than it was then beyond `stall` relative
+//     (ops/cuda_qp.py STALL, which says why; -inf: no voxel stalls):
+//     Lawson-Hanson never returns to a set in exact arithmetic, so such a
+//     voxel is at float32's limit; the anchor catches the cycles longer
+//     than the history), or once x moves by at most tol * the tile's
+//     largest max|b_eff| anywhere in the tile.
 //     The last scheduled round's stability seeds the test;
 //   a final masked-CG polish at budget `polish`, then x = max(x, 0).
 // Zero rounds return the FISTA iterate (or the warm start) as it is.
-// Optionally (tile_rounds not null) each tile writes the number of
-// continuation rounds it ran (0 without `converge`) to tile_rounds[tile]:
-// the counter of the tail, read while the port is traced.
+// Optionally each tile writes the number of continuation rounds it ran (0
+// without `converge`) to tile_rounds[tile] and what ended them (TailExit)
+// to tile_exits[tile]: the counters of the tail, read while the port is
+// traced.
 //
 // Layout.  A tile is a thread block cluster of QP_CLUSTER blocks, each on
 // its own SM, for n <= 32, and one block above.  A voxel is solved by a
@@ -34,16 +43,19 @@
 // g, g + NGT, ... (NGT groups a tile), so the groups of a warp hold
 // neighbouring voxels.  Each voxel keeps its state on chip from its
 // scheduled rounds through the continuation and the polish, in dynamic
-// shared memory after G: its working-set and coefficient-mask words (K
-// words of W bits each), its scale max|b_eff| + 1e-30, and its x and b_eff
-// (n floats each).  Where x and b_eff do not both fit beside G (large n*M;
-// the wrapper's qp_geometry mirrors the rule), b_eff is recomputed from b
-// each round, and then x too stays in the output tensor.  So a round reads
-// no device memory, and x is written to the output once, by the polish.
-// The tile's voxels meet only at the `converge` test: each block takes a
-// __syncthreads_and over its groups' stability and a block max of their
-// |dx|, and the blocks of a cluster exchange the two through distributed
-// shared memory, one cluster barrier a round (tile_vote, qp_warp.cuh).
+// shared memory after G: its working-set and coefficient-mask words, the
+// working sets of its QP_STALL_ROUNDS - 1 rounds before the last and its
+// anchor (K words of W bits each), its scale max|b_eff| + 1e-30, its
+// objective at the end of each of its last QP_STALL_ROUNDS rounds and at
+// its anchor, and its x and b_eff (n floats each).  Where x and b_eff do not both fit
+// beside G (large n*M; the wrapper's qp_geometry mirrors the rule), b_eff
+// is recomputed from b each round, and then x too stays in the output
+// tensor.  So a round reads no device memory, and x is written to the
+// output once, by the polish.  The tile's voxels meet only at the
+// `converge` test: each block takes __syncthreads_and over its groups'
+// levels (stable, stalled) and a block max of their |dx|, and the blocks
+// of a cluster exchange the two through distributed shared memory, one
+// cluster barrier a round (tile_level, qp_warp.cuh).
 //
 // What bounds it.  Not memory: a tile reads G (n*n floats) and b once and
 // writes x once.  Nor the operations the inputs need (testing.solve_work).
@@ -84,6 +96,9 @@ struct QpSched {
   int cg[QP_MAXR];
 };
 
+// what ended a tile's continuation (ops/cuda_qp.py TAIL_EXITS)
+enum TailExit { TAIL_OFF, TAIL_STABLE, TAIL_STALLED, TAIL_XTOL, TAIL_CAP };
+
 struct QpParams {
   const float* G;     // (C, n, n)
   const float* b;     // (C, M, n)
@@ -92,9 +107,11 @@ struct QpParams {
   const float* x0;    // (C, M, n), or null: with m0, CG's warm start
   float* x;           // (C, M, n): the result
   int* tile_rounds;   // (C,): each tile's continuation rounds, or null
+  int* tile_exits;    // (C,): what ended them (TailExit), or null
   int M, n;
   int state;          // 2: x and b_eff in shared memory; 1: x only; 0: neither
   float lam1, lam2;
+  float stall;        // the stall test's tolerance, relative
   QpSched s;
 };
 
@@ -102,7 +119,14 @@ struct QpParams {
 struct VoxState {
   unsigned* mw;  // (M, K) working-set words
   unsigned* cw;  // (M, K) coefficient-mask words
+  unsigned* hw;  // (M, QP_STALL_ROUNDS - 1, K) the working sets after the
+                 // rounds before the last, the latest first
+  unsigned* aw;  // (M, K) the anchor: the working set after the last round
+                 // that lowered the objective by more than the tolerance
   float* sc;     // (M,) max|b_eff| + 1e-30
+  float* hf;     // (M, QP_STALL_ROUNDS) the objective after each of the
+                 // last rounds, the latest first (QP_BIG: none)
+  float* af;     // (M,) the objective at the anchor
   float* xs;     // (M, n) x: shared memory, or the tile's rows of the output
   float* bs;     // (M, n) b_eff in shared memory, or null
 };
@@ -148,7 +172,9 @@ __device__ __forceinline__ unsigned load_bits(const unsigned* w,
 
 // warm start and the scheduled rounds of voxel v of the tile (vox in the
 // batch), then its state on chip; returns whether its last round left it
-// stable, and its scale
+// stable, and its scale.  The rounds' sets and objectives start the
+// history of the stall test, the last one its anchor; QP_BIG matches no
+// objective
 template <int K, int W>
 __device__ __forceinline__ bool scheduled(const QpParams& P, const float* Gs,
                                           float step, const VoxState& VS,
@@ -193,14 +219,40 @@ __device__ __forceinline__ bool scheduled(const QpParams& P, const float* Gs,
   Stage<K, W> S;
   stage_init<K, W>(S, Gs, P.lam1, P.lam2, b, cmask, L);
   bool stable = false;
-  for (int r = 0; r < P.s.rounds; r++)
-    stable = as_round<K, W>(S, x, m, P.s.cg[min(r, QP_MAXR - 1)], P.s.inner,
-                            P.s.add_k);
+  // the sets after the rounds before the last, the latest first, and the
+  // objectives after the last rounds
+  constexpr int H = QP_STALL_ROUNDS;
+  unsigned hm[H - 1];
+  float hf[H];
+#pragma unroll
+  for (int i = 0; i < H - 1; i++) hm[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < H; i++) hf[i] = QP_BIG;
+  for (int r = 0; r < P.s.rounds; r++) {
+#pragma unroll
+    for (int i = H - 2; i > 0; i--) hm[i] = hm[i - 1];
+    hm[0] = m;
+    float f;
+    stable = as_round<K, W, true>(S, x, m, P.s.cg[min(r, QP_MAXR - 1)],
+                                  P.s.inner, P.s.add_k, &f);
+#pragma unroll
+    for (int i = H - 1; i > 0; i--) hf[i] = hf[i - 1];
+    hf[0] = f;
+  }
   store_row<K, W>(VS.xs + (size_t)v * n, n, lane, x);
   if (VS.bs) store_row<K, W>(VS.bs + (size_t)v * n, n, lane, S.beff);
   store_bits<K, W>(VS.mw + v * K, m, L);
   store_bits<K, W>(VS.cw + v * K, cmask, L);
-  if (lane == 0) VS.sc[v] = S.scale;
+#pragma unroll
+  for (int i = 0; i < H - 1; i++)
+    store_bits<K, W>(VS.hw + ((size_t)v * (H - 1) + i) * K, hm[i], L);
+  store_bits<K, W>(VS.aw + v * K, m, L);
+  if (lane == 0) {
+    VS.sc[v] = S.scale;
+#pragma unroll
+    for (int i = 0; i < H; i++) VS.hf[(size_t)v * H + i] = hf[i];
+    VS.af[v] = hf[0];
+  }
   scale = S.scale;
   return stable;
 }
@@ -228,30 +280,66 @@ __device__ __forceinline__ void load_stage(Stage<K, W>& S, const QpParams& P,
   S.gate = QP_TOL * S.scale;
 }
 
-// one continuation round of voxel v; returns its stability, and the
+// one continuation round of voxel v; returns its level, 2 stable, 1
+// stalled (back in the working set of one of its last QP_STALL_ROUNDS
+// rounds or in its anchor without a lower objective), 0 neither, and the
 // largest |dx| of the round in dx
 template <int K, int W>
-__device__ __forceinline__ bool cont_round(const QpParams& P, const float* Gs,
-                                           const VoxState& VS, int v,
-                                           size_t vox, const Lanes<W>& L,
-                                           float& dx) {
+__device__ __forceinline__ int cont_round(const QpParams& P, const float* Gs,
+                                          const VoxState& VS, int v,
+                                          size_t vox, const Lanes<W>& L,
+                                          float& dx) {
   Stage<K, W> S;
   load_stage<K, W>(S, P, Gs, VS, v, vox, L);
   float* xv = VS.xs + (size_t)v * P.n;
   float x[K], x_old[K];
   load_row<K, W>(xv, P.n, L.lane, x);
-  unsigned m = load_bits<K, W>(VS.mw + v * K, L);
+  constexpr int H = QP_STALL_ROUNDS;
+  // the sets after the last H rounds, the latest first, and their
+  // objectives
+  unsigned hm[H];
+  float hf[H];
+  hm[0] = load_bits<K, W>(VS.mw + v * K, L);
+#pragma unroll
+  for (int i = 1; i < H; i++)
+    hm[i] = load_bits<K, W>(VS.hw + ((size_t)v * (H - 1) + i - 1) * K, L);
+#pragma unroll
+  for (int i = 0; i < H; i++) hf[i] = VS.hf[(size_t)v * H + i];
+  unsigned m = hm[0];
 #pragma unroll
   for (int k = 0; k < K; k++) x_old[k] = x[k];
-  const bool stable = as_round<K, W>(S, x, m, P.s.cont_cg, P.s.inner,
-                                     P.s.add_k);
+  float f;
+  const bool stable = as_round<K, W, true>(S, x, m, P.s.cont_cg, P.s.inner,
+                                           P.s.add_k, &f);
+  bool stalled = false;
+#pragma unroll
+  for (int i = 0; i < H; i++)
+    stalled |= __all_sync(L.mask(), m == hm[i]) &&
+               f >= hf[i] - P.stall * fabsf(hf[i]);
+  // the anchor moves where the objective falls beyond the tolerance (f is
+  // the same on the group's lanes)
+  const float fa = VS.af[v], floor_a = fa - P.stall * fabsf(fa);
+  stalled |= __all_sync(L.mask(), m == load_bits<K, W>(VS.aw + v * K, L)) &&
+             f >= floor_a;
+  if (f < floor_a) {
+    store_bits<K, W>(VS.aw + v * K, m, L);
+    if (L.lane == 0) VS.af[v] = f;
+  }
   float d = 0.f;
 #pragma unroll
   for (int k = 0; k < K; k++) d = fmaxf(d, fabsf(x[k] - x_old[k]));
   dx = group_max<W>(d, L.mask());
   store_row<K, W>(xv, P.n, L.lane, x);
   store_bits<K, W>(VS.mw + v * K, m, L);
-  return stable;
+#pragma unroll
+  for (int i = 0; i < H - 1; i++)
+    store_bits<K, W>(VS.hw + ((size_t)v * (H - 1) + i) * K, hm[i], L);
+  if (L.lane == 0) {
+    VS.hf[(size_t)v * H] = f;
+#pragma unroll
+    for (int i = 1; i < H; i++) VS.hf[(size_t)v * H + i] = hf[i - 1];
+  }
+  return stable ? 2 : stalled ? 1 : 0;
 }
 
 template <int K, int W>
@@ -291,9 +379,14 @@ nneg_qp_kernel(const QpParams P) {
   VoxState VS;
   VS.mw = reinterpret_cast<unsigned*>(Gs + n * LDG);
   VS.cw = VS.mw + M * K;
-  VS.sc = reinterpret_cast<float*>(VS.cw + M * K);
-  VS.xs = P.state >= 1 ? VS.sc + M : P.x + base * n;
-  VS.bs = P.state == 2 ? VS.sc + M + (size_t)M * n : nullptr;
+  VS.hw = VS.cw + M * K;
+  VS.aw = VS.hw + M * (QP_STALL_ROUNDS - 1) * K;
+  VS.sc = reinterpret_cast<float*>(VS.aw + M * K);
+  VS.hf = VS.sc + M;
+  VS.af = VS.hf + M * QP_STALL_ROUNDS;
+  float* rows = VS.af + M;
+  VS.xs = P.state >= 1 ? rows : P.x + base * n;
+  VS.bs = P.state == 2 ? rows + (size_t)M * n : nullptr;
   // transposed and replicated: Gs[j*LDG + 32k + l] = G[(l mod W) + Wk][j]
   const float* G = P.G + (size_t)c * n * n;
   for (int e = tid; e < n * LDG; e += blockDim.x) {
@@ -318,30 +411,36 @@ nneg_qp_kernel(const QpParams P) {
     g_stable &= scheduled<K, W>(P, Gs, step, VS, v, base + v, L, sc);
     g_scale = fmaxf(g_scale, sc);
   }
-  const bool counted = P.tile_rounds && tid == 0 && rank == 0;
+  const bool lead = tid == 0 && rank == 0;   // writes the tile's counts
   if (P.s.rounds == 0) {
-    if (counted) P.tile_rounds[c] = 0;
+    if (lead && P.tile_rounds) P.tile_rounds[c] = 0;
+    if (lead && P.tile_exits) P.tile_exits[c] = TAIL_OFF;
     return;
   }
   float xtol = g_scale;
   bool done = tile_vote<NW, CS>(g_stable, xtol, red, slots, 0, warp, wlane);
   xtol *= QP_TOL;
   int used = 0;       // continuation rounds run (the same in every thread)
+  int exit = TAIL_OFF;
   if (P.s.cont_cg > 0) {
+    exit = done ? TAIL_STABLE : TAIL_CAP;
     for (; used < P.s.cont_rounds && !done; used++) {
-      bool gs = true;
+      int gl = 2;
       float gdx = 0.f;
       for (int v = grp; v < M; v += NGT) {
         float dx;
-        gs &= cont_round<K, W>(P, Gs, VS, v, base + v, L, dx);
+        gl = min(gl, cont_round<K, W>(P, Gs, VS, v, base + v, L, dx));
         gdx = fmaxf(gdx, dx);
       }
-      const bool st = tile_vote<NW, CS>(gs, gdx, red, slots, used + 1, warp,
-                                        wlane);
-      done = st || gdx <= xtol;
+      const int lvl = tile_level<NW, CS, 2>(gl, gdx, red, slots, used + 1,
+                                            warp, wlane);
+      done = lvl > 0 || gdx <= xtol;
+      if (done)
+        exit = lvl == 2 ? TAIL_STABLE : lvl == 1 ? TAIL_STALLED : TAIL_XTOL;
     }
   }
-  if (counted) P.tile_rounds[c] = used;
+  if (lead && P.tile_rounds) P.tile_rounds[c] = used;
+  if (lead && P.tile_exits) P.tile_exits[c] = exit;
   // no block leaves while another may still read its slots
   if (CS > 1) coop::this_cluster().sync();
   // every path above ends in a block barrier after the last state write
@@ -377,12 +476,15 @@ static int launch(const QpParams& P, int C, size_t smem, cudaStream_t st) {
 extern "C" {
 
 // sched: [fista, rounds, inner, add_k, polish, cont_cg, cont_rounds,
-// cg[QP_MAXR]] (host); round r runs cg[min(r, QP_MAXR - 1)].  tile_rounds:
-// (C,) int32 on the device for each tile's continuation rounds, or null
+// cg[QP_MAXR]] (host); round r runs cg[min(r, QP_MAXR - 1)].  tile_rounds,
+// tile_exits: (C,) int32 on the device for each tile's continuation rounds
+// and what ended them (TailExit), or null.  stall: the stall test's
+// tolerance
 int nneg_qp_launch(const void* G, const void* b, const void* mask,
                    const void* m0, const void* x0, void* x,
-                   void* tile_rounds, int C, int M, int n, float lam1,
-                   float lam2, const void* sched, void* stream) {
+                   void* tile_rounds, void* tile_exits, int C, int M, int n,
+                   float lam1, float lam2, float stall, const void* sched,
+                   void* stream) {
   if (n < 1 || n > 32 * QP_MAXK) return (int)cudaErrorInvalidValue;
   QpParams P;
   P.G = (const float*)G;
@@ -392,10 +494,12 @@ int nneg_qp_launch(const void* G, const void* b, const void* mask,
   P.x0 = (const float*)x0;
   P.x = (float*)x;
   P.tile_rounds = (int*)tile_rounds;
+  P.tile_exits = (int*)tile_exits;
   P.M = M;
   P.n = n;
   P.lam1 = lam1;
   P.lam2 = lam2;
+  P.stall = stall;
   const int* s = (const int*)sched;
   P.s.fista = s[0];
   P.s.rounds = s[1];
@@ -408,11 +512,14 @@ int nneg_qp_launch(const void* G, const void* b, const void* mask,
   if (P.s.fista < 0 || P.s.rounds < 0 || P.s.inner < 0 || P.s.add_k < 1)
     return (int)cudaErrorInvalidValue;
   if (C == 0 || M == 0) return 0;
-  // group width and coefficients a lane; G, then M voxels' words and
-  // scale, then (as they fit) their x and b_eff
+  // group width and coefficients a lane; G, then M voxels' sets of words
+  // (working set, mask, history, anchor), scale and objectives, then (as
+  // they fit) their x and b_eff
   const int W = n <= 8 ? 8 : n <= 16 ? 16 : 32;
   const int K = (n + W - 1) / W;
-  const size_t words = (size_t)n * 32 * K + (size_t)M * (2 * K + 1);
+  const size_t words =
+      (size_t)n * 32 * K +
+      (size_t)M * ((QP_STALL_ROUNDS + 2) * K + QP_STALL_ROUNDS + 2);
   const size_t rows = (size_t)M * n;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);

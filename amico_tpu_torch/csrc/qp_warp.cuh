@@ -38,6 +38,10 @@ namespace coop = cooperative_groups;
 
 #define FULL 0xffffffffu
 #define QP_TOL 3e-6f     // prune / add gate, relative to max|b_eff| per voxel
+// K2's stall test (nneg_qp.cu): the rounds of history it keeps, each
+// voxel's working set and objective after each; ops/cuda_qp.py mirrors it
+// (STALL_ROUNDS) and passes the test's tolerance (STALL)
+#define QP_STALL_ROUNDS 4
 #define QP_BIG 3.0e38f
 
 // the lanes of one group: W consecutive lanes of a warp
@@ -242,18 +246,25 @@ __device__ __forceinline__ void inner_solve(const Stage<K, W>& S,
 }
 
 // add the most violated atom outside the working set, then up to add_k-1
-// more, each under the same gate; returns whether the first passed it
-template <int K, int W>
+// more, each under the same gate; returns whether the first passed it.
+// With OBJ, *f is the objective 1/2 x'Gx - b_eff'x + l2/2 |x|^2 at x,
+// -1/2 x'(b_eff + w) from the same G x (K1 takes none)
+template <int K, int W, bool OBJ = false>
 __device__ __forceinline__ bool add_atoms(const Stage<K, W>& S,
                                           const float (&x)[K], unsigned& m,
-                                          int add_k) {
+                                          int add_k, float* f = nullptr) {
   const int lane = S.L.lane;
   float w[K];
   gmv<K, W>(S.Gs, x, w, S.L);
   const unsigned allowed = S.cmask & ~m;
+  float part = 0.f;
 #pragma unroll
-  for (int k = 0; k < K; k++)
-    w[k] = bit(allowed, k) ? S.beff[k] - w[k] - S.l2 * x[k] : -QP_BIG;
+  for (int k = 0; k < K; k++) {
+    const float wk = S.beff[k] - w[k] - S.l2 * x[k];
+    if (OBJ) part += x[k] * (S.beff[k] + wk);
+    w[k] = bit(allowed, k) ? wk : -QP_BIG;
+  }
+  if (OBJ) *f = -0.5f * group_sum<W>(part, S.L.mask());
   bool added = false;
   for (int a = 0; a < add_k; a++) {
     float best = -QP_BIG;
@@ -274,14 +285,15 @@ __device__ __forceinline__ bool add_atoms(const Stage<K, W>& S,
 
 // one Lawson-Hanson round: inner solve-and-prune passes, then the adds.
 // Returns whether the voxel is stable: its first add failed the gate and
-// its working set is where the round found it.
-template <int K, int W>
+// its working set is where the round found it.  With OBJ, *f is its
+// objective at the round's end (add_atoms)
+template <int K, int W, bool OBJ = false>
 __device__ __forceinline__ bool as_round(const Stage<K, W>& S, float (&x)[K],
                                          unsigned& m, int iters, int inner,
-                                         int add_k) {
+                                         int add_k, float* f = nullptr) {
   const unsigned m_before = m;
   for (int i = 0; i < inner; i++) inner_solve<K, W>(S, x, m, iters);
-  const bool added = add_atoms<K, W>(S, x, m, add_k);
+  const bool added = add_atoms<K, W, OBJ>(S, x, m, add_k, f);
   return !added && __all_sync(S.L.mask(), m == m_before);
 }
 
@@ -360,31 +372,43 @@ __device__ __forceinline__ float block_max(float v, float* red, int warp,
   return r;
 }
 
-// the tile's vote: the AND of `stable` and the max of v over the tile's
-// groups, over the block and then (CS > 1) over the blocks of its cluster
-// through distributed shared memory (every thread must call it).  The
-// slots alternate with `turn`, so a block still reading one turn's slots
-// never meets the next turn's writes: a cluster barrier lies between.
-template <int NW, int CS>
-__device__ __forceinline__ bool tile_vote(bool stable, float& v, float* red,
+// the tile's vote: the least of the threads' `level`s (each in 0..LEVELS)
+// and the max of v over the tile's groups, over the block and then (CS > 1)
+// over the blocks of its cluster through distributed shared memory (every
+// thread must call it).  One block barrier a level: the least level is the
+// number of levels l at which every thread has level >= l.  The slots
+// alternate with `turn`, so a block still reading one turn's slots never
+// meets the next turn's writes: a cluster barrier lies between.
+template <int NW, int CS, int LEVELS = 1>
+__device__ __forceinline__ int tile_level(int level, float& v, float* red,
                                           float* slots, int turn, int warp,
                                           int wlane) {
-  stable = __syncthreads_and(stable);
+  int least = 0;
+#pragma unroll
+  for (int l = 1; l <= LEVELS; l++) least += __syncthreads_and(level >= l);
   v = block_max<NW>(v, red, warp, wlane);
   if (CS > 1) {
     coop::cluster_group cl = coop::this_cluster();
     float* mine = slots + 2 * (turn & 1);
     if (threadIdx.x == 0) {
-      mine[0] = stable ? 1.f : 0.f;
+      mine[0] = (float)least;
       mine[1] = v;
     }
     cl.sync();
 #pragma unroll
     for (int r = 0; r < CS; r++) {
       const float* theirs = cl.map_shared_rank(mine, r);
-      stable = stable && theirs[0] != 0.f;
+      least = min(least, (int)theirs[0]);
       v = fmaxf(v, theirs[1]);
     }
   }
-  return stable;
+  return least;
+}
+
+// the tile's vote on one flag: the AND of `stable`, and the max of v
+template <int NW, int CS>
+__device__ __forceinline__ bool tile_vote(bool stable, float& v, float* red,
+                                          float* slots, int turn, int warp,
+                                          int wlane) {
+  return tile_level<NW, CS>(stable, v, red, slots, turn, warp, wlane) > 0;
 }

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from .. import trace
-from ..ops.cuda_qp import nneg_qp_tiles
+from ..ops.cuda_qp import TAIL_EXITS, nneg_qp_tiles
 from ..ops.solvers import nneg_qp_batch
 
 
@@ -49,7 +49,9 @@ def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
     ``L[:, None]``, as the JAX package does.  ``m0``/``x0`` warm-start the
     active-set rounds and skip FISTA.  While the port is traced, the tile
     QP's continuation rounds, summed on the device, and its tiles go to
-    the counters ``k2.rounds`` and ``k2.tiles``; with ``valid`` (C, M), the
+    the counters ``k2.rounds`` and ``k2.tiles``, and the tiles whose
+    continuation ended by the stall test or at the round cap to
+    ``k2.stalled`` and ``k2.capped``; with ``valid`` (C, M), the
     atoms with x > 0 of the valid voxels and those voxels, summed on the
     device, go to ``k2.support`` and ``k2.voxels`` (the tile driver reads
     the device sums after its synchronise)."""
@@ -62,11 +64,15 @@ def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
     if not trace.on():
         return nneg_qp_tiles(G, b, L, lam1, lam2, mask=mask, m0=m0, x0=x0,
                              **kw)
-    rounds = torch.empty(b.shape[0], dtype=torch.int32, device=b.device)
+    rounds, exits = torch.empty((2, b.shape[0]), dtype=torch.int32,
+                                device=b.device)
     x = nneg_qp_tiles(G, b, L, lam1, lam2, mask=mask, m0=m0, x0=x0,
-                      tile_rounds=rounds, **kw)
+                      tile_rounds=rounds, tile_exits=exits, **kw)
     trace.count_on_device('k2.rounds', rounds.sum())
     trace.count('k2.tiles', b.shape[0])
+    for counter, exit in (('k2.stalled', 'stalled'), ('k2.capped', 'cap')):
+        trace.count_on_device(counter,
+                              (exits == TAIL_EXITS.index(exit)).sum())
     if valid is not None:
         trace.count_on_device('k2.support', ((x > 0) & valid[..., None]).sum())
         trace.count_on_device('k2.voxels', valid.sum())

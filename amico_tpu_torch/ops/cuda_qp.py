@@ -48,9 +48,27 @@ from .cuda_build import Launcher, entry
 from .solvers import noddi_stage2_tiebreak
 
 TOL = 3e-6          # prune / add gate, relative to max|b_eff| per voxel
+# K2's stall test: a voxel back in the working set of one of its last
+# STALL_ROUNDS rounds, or in its anchor (the set after its last round that
+# lowered its objective by more than STALL, relative), whose objective fell
+# by no more than STALL, relative, since then is done.  STALL is about 2 ulps of a float32 objective: without it
+# float32 rounding keeps some cycles going, and an objective summed in
+# float64 sees the float32 x creep and falls forever by amounts too small
+# to matter.  A voxel that prunes k atoms in one round and adds them back
+# one a round cycles with period k + 1 (two of CZB's near-collinear
+# zeppelins at once: period 3; four cylinders: period 5, which the anchor
+# ends).  The kernel takes STALL at each launch;
+# -inf switches the test off in both (no objective passes it)
+STALL = 1e-7
+STALL_ROUNDS = 4    # csrc/qp_warp.cuh QP_STALL_ROUNDS
 FTOL = 1e-4         # FISTA's early exit, relative to the tile's max|b|
 BIG = 3.0e38
 MAX_ATOMS = 160     # csrc/noddi_fused.cu 32 * KMAX
+# what ended a tile's `converge` continuation (csrc/nneg_qp.cu TailExit):
+# no continuation in the schedule; every voxel stable (or the schedule's
+# last round left the tile so); every voxel stable or stalled; x moved by
+# at most TOL * the tile's largest max|b_eff|; the round cap
+TAIL_EXITS = ('off', 'stable', 'stalled', 'xtol', 'cap')
 SMEM_LD = 160       # csrc/noddi_fused.cu LD: row stride of a Gram in shared memory
 SUP_WORDS = 5       # csrc/noddi_fused.cu KMAX: stage-2 support words a voxel
 
@@ -202,10 +220,18 @@ def _fista(mv, G, bm, l1, l2, cmask, iters, early_exit=False):
 
 
 def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
-              x_init=None, tile_rounds=None):
+              x_init=None, tile_rounds=None, tile_exits=None, stall=False):
     """One solve for a batch of tiles: G (C, n, n), b/cmask (C, M, n).
     The tile (dim 0) is the unit of the ``converge`` continuation; each
-    tile's continuation rounds are added to ``tile_rounds`` (C,) if given."""
+    tile's continuation rounds are added to ``tile_rounds`` (C,) if given,
+    and what ended them (an index into TAIL_EXITS) is written to
+    ``tile_exits`` (C,) if given.  ``stall`` (K2's continuation; K1's has
+    none) also counts a voxel done once a round returns it to the working
+    set of one of its last STALL_ROUNDS rounds, or to its anchor (the set
+    after its last round that lowered its objective by more than STALL,
+    relative), without lowering its objective by more than STALL since:
+    Lawson-Hanson never returns to a set in exact arithmetic, so such a
+    voxel is at float32's limit."""
     Gt = G.transpose(-1, -2)
 
     def mv(v):                                  # G v for each voxel
@@ -252,13 +278,16 @@ def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
         return x * m, m
 
     def as_round(x, m, iters, inner):
-        """Inner passes, then the top-add_k adds; also whether the tile is
-        stable: no voxel passed the first add's gate and no working set
-        changed over the round (C,)."""
+        """Inner passes, then the top-add_k adds.  Also, per voxel (C, M),
+        whether it is stable (its first add failed the gate and its
+        working set is where the round found it), and its objective
+        1/2 x'Gx - b_eff'x + l2/2 |x|^2 = -1/2 x'(b_eff + w) at the round's
+        end, from the gradient w that the adds read."""
         m_before = m
         for _ in range(inner):
             x, m = inner_solve(x, m, iters)
         w = b_eff - mv(x) - l2 * x
+        f = -0.5 * (x * (b_eff + w)).sum(-1)
         w_cand = torch.where((1.0 - m) * cmask > 0.0, w, -BIG)
         m_new = m
         for k in range(sch.add_k):
@@ -271,43 +300,76 @@ def _as_solve(G, b, l1, l2, cmask, sch: StageSchedule, m0=None,
             m_new = torch.clamp(m_new + (wk > gate).float() * onehot,
                                 max=1.0)
             w_cand = torch.where(onehot > 0.0, -BIG, w_cand)
-        stable = ~added.flatten(1).any(1) & \
-            (m_new == m_before).flatten(1).all(1)
-        return x, m_new, stable
+        stable = ~added[..., 0] & (m_new == m_before).all(-1)
+        return x, m_new, stable, f
+
+    def whole(v):                               # per voxel -> per tile
+        return v.flatten(1).all(1)
+
+    def remember(past, m, f):
+        return [(m, f)] + past[:STALL_ROUNDS - 1]
 
     m = (x > 0.0).float() * cmask if m0 is None else m0 * cmask
     tile = (-1,) + (1,) * (x.dim() - 1)
     stable = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    # each voxel's working set and objective at the end of each of its last
+    # STALL_ROUNDS rounds, the latest first
+    past = []
     for iters, inner in zip(sch.cg, sch.inner):
         if not sch.early_exit:
-            x, m, stable = as_round(x, m, iters, inner)
+            x, m, st, f = as_round(x, m, iters, inner)
+            stable = whole(st)
+            past = remember(past, m, f)
             continue
         # a stable tile skips the scheduled rounds left: its support
         # cannot change, and the polish recomputes x on it
         if bool(stable.all()):
             break
-        xn, mn, st = as_round(x, m, iters, inner)
+        xn, mn, st, f = as_round(x, m, iters, inner)
         run = (~stable).view(tile)
         x = torch.where(run, xn, x)
         m = torch.where(run, mn, m)
-        stable = stable | st
+        stable = stable | whole(st)
+        past = remember(past, m, f)
     if sch.cont_cg:
-        # per tile: continue while the working sets change and x still
-        # moves by more than tol * the tile's largest scale
+        # per tile: continue while a voxel's working set changes (and,
+        # with `stall`, its objective still falls) and x still moves by
+        # more than tol * the tile's largest scale
         xtol = TOL * scale.flatten(1).amax(1)
+        # each voxel's anchor and its objective: the last scheduled round's
+        am, af = past[0] if past else (m, torch.full_like(m[..., 0], BIG))
         done = stable
+        exits = torch.where(done, TAIL_EXITS.index('stable'),
+                            TAIL_EXITS.index('cap'))
         inner = max(sch.inner)
         for _ in range(sch.cont_rounds):
             if bool(done.all()):
                 break
             if tile_rounds is not None:
                 tile_rounds += (~done).to(tile_rounds.dtype)
-            xn, mn, st = as_round(x, m, sch.cont_cg, inner)
-            done_now = st | ((xn - x).abs().flatten(1).amax(1) <= xtol)
+            xn, mn, st, fn = as_round(x, m, sch.cont_cg, inner)
+            settled = st
+            for pm, pf in past if stall else ():
+                settled = settled | ((mn == pm).all(-1)
+                                     & (fn >= pf - STALL * pf.abs()))
+            if stall:
+                floor = af - STALL * af.abs()
+                settled = settled | ((mn == am).all(-1) & (fn >= floor))
+                am = torch.where((fn < floor)[..., None], mn, am)
+                af = torch.where(fn < floor, fn, af)
+            past = remember(past, mn, fn)
+            done_now = whole(settled) \
+                | ((xn - x).abs().flatten(1).amax(1) <= xtol)
+            exits = torch.where(done_now & ~done, torch.where(
+                whole(st), TAIL_EXITS.index('stable'), torch.where(
+                    whole(settled), TAIL_EXITS.index('stalled'),
+                    TAIL_EXITS.index('xtol'))), exits)
             run = (~done).view(tile)
             x = torch.where(run, xn, x)
             m = torch.where(run, mn, m)
             done = done | done_now
+        if tile_exits is not None:
+            tile_exits.copy_(exits)
     x, m = inner_solve(x, m, sch.polish)
     return torch.clamp(x, min=0.0)
 
@@ -502,7 +564,7 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NODDI_LAUNCH = Launcher('noddi_fused_launch',
                          [_vp] * 15 + [_ci] * 6 + [_cf, _cf, _vp])
 _QP_LAUNCH = Launcher('nneg_qp_launch',
-                      [_vp] * 7 + [_ci] * 3 + [_cf, _cf, _vp])
+                      [_vp] * 8 + [_ci] * 3 + [_cf] * 3 + [_vp])
 
 
 def _max_smem(device) -> int:
@@ -655,7 +717,8 @@ def _check_qp_inputs(G, b, mask, m0, x0):
 def nneg_qp_tiles_torch(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
                         fista_iters=60, cd_sweeps=4, refine_rounds=14,
                         cg_iters=24, inner_passes=2, m0=None, x0=None,
-                        converge=False, add_k=1, tile_rounds=None):
+                        converge=False, add_k=1, tile_rounds=None,
+                        tile_exits=None):
     """Plain PyTorch version of the tile QP, on any device.
 
     G (C, n, n), b (C, M, n) -> x (C, M, n), all float32; ``mask``, ``m0``
@@ -663,33 +726,33 @@ def nneg_qp_tiles_torch(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
     first CG solve and skip FISTA.  ``L`` and ``cd_sweeps`` are accepted
     and ignored, as by ``nneg_qp_tiles_pallas``.  ``tile_rounds``, a (C,)
     int32 tensor on b's device, receives each tile's ``converge``
-    continuation rounds (0 without)."""
+    continuation rounds (0 without), and ``tile_exits``, another, what
+    ended them: an index into TAIL_EXITS ('off' without)."""
     _check_qp_inputs(G, b, mask, m0, x0)
-    _check_tile_rounds(tile_rounds, b)
+    _check_tile_counts(b, tile_rounds=tile_rounds, tile_exits=tile_exits)
     sch = qp_schedule(b.shape[-1], fista_iters, refine_rounds, cg_iters,
                       inner_passes, converge, add_k)
     cmask = torch.ones_like(b) if mask is None else mask
-    if tile_rounds is not None:
-        tile_rounds.zero_()
+    for t in (tile_rounds, tile_exits):
+        if t is not None:
+            t.zero_()
+    counts = dict(tile_rounds=tile_rounds, tile_exits=tile_exits, stall=True)
     if m0 is None:
-        return _as_solve(G, b, float(lam1), float(lam2), cmask, sch,
-                         tile_rounds=tile_rounds)
+        return _as_solve(G, b, float(lam1), float(lam2), cmask, sch, **counts)
     x_init = (torch.zeros_like(b) if x0 is None else x0) * cmask
     return _as_solve(G, b, float(lam1), float(lam2), cmask, sch,
-                     m0=m0 * cmask, x_init=x_init, tile_rounds=tile_rounds)
+                     m0=m0 * cmask, x_init=x_init, **counts)
 
 
-def _check_tile_rounds(tile_rounds, b):
-    if tile_rounds is None:
-        return
-    if tile_rounds.dtype != torch.int32 \
-            or tuple(tile_rounds.shape) != (b.shape[0],) \
-            or tile_rounds.device != b.device \
-            or not tile_rounds.is_contiguous():
-        raise ValueError('tile_rounds must be a contiguous (C,) int32 '
-                         f'tensor on {b.device}, got '
-                         f'{tuple(tile_rounds.shape)} {tile_rounds.dtype} on '
-                         f'{tile_rounds.device}')
+def _check_tile_counts(b, **counts):
+    for name, t in counts.items():
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or tuple(t.shape) != (b.shape[0],) \
+                or t.device != b.device or not t.is_contiguous():
+            raise ValueError(f'{name} must be a contiguous (C,) int32 '
+                             f'tensor on {b.device}, got {tuple(t.shape)} '
+                             f'{t.dtype} on {t.device}')
 
 
 def _qp_sched_array(sch: StageSchedule) -> np.ndarray:
@@ -722,9 +785,11 @@ class QpGeometry:
     tile is a cluster of ``cluster`` blocks of ``warps`` warps, which hold
     ``groups`` voxels in flight; and each block keeps the tile's per-voxel
     state in ``smem`` bytes of dynamic shared memory: G, each voxel's
-    working-set and mask words and scale and, by ``state``, its x and
-    b_eff (2), x only (1) or neither (0: x in the output, b_eff recomputed
-    from b each round)."""
+    working-set and mask words, those of its STALL_ROUNDS - 1 rounds before
+    the last and of its anchor, its scale, its last STALL_ROUNDS objectives
+    and its anchor's and,
+    by ``state``, its x and b_eff (2), x only (1) or neither (0: x in the
+    output, b_eff recomputed from b each round)."""
     width: int
     per_lane: int
     warps: int
@@ -747,7 +812,8 @@ def qp_geometry(n: int, M: int, smem_max: int) -> QpGeometry:
                                   f'atoms, got {n} (ROADMAP queue 2, K2)')
     width = 8 if n <= 8 else 16 if n <= 16 else 32
     k = -(-n // width)
-    words = n * 32 * k + M * (2 * k + 1)   # G, then words and scales
+    # G, then each voxel's words and scalars
+    words = n * 32 * k + M * ((STALL_ROUNDS + 2) * (k + 1))
     rows = M * n                           # one voxel array (x or b_eff)
     avail = max(smem_max - QP_SMEM_RESERVE, 0) // 4
     state = 2 if words + 2 * rows <= avail else \
@@ -766,21 +832,22 @@ def qp_geometry(n: int, M: int, smem_max: int) -> QpGeometry:
 def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
                   fista_iters=60, cd_sweeps=4, refine_rounds=14, cg_iters=24,
                   inner_passes=2, m0=None, x0=None, converge=False, add_k=1,
-                  tile_rounds=None):
+                  tile_rounds=None, tile_exits=None):
     """Tile QP: the CUDA kernel for CUDA tensors, the twin for CPU tensors.
     Same arguments and return as :func:`nneg_qp_tiles_torch`.  The kernel
     takes n <= QP_MAX_ATOMS and 0/1 ``mask`` and ``m0``, and raises on the
-    rest.  Without ``tile_rounds`` the kernel writes no round count.
+    rest.  Without ``tile_rounds`` (``tile_exits``) the kernel writes no
+    round count (exit).
     ``nneg_qp_tiles.launches`` counts kernel launches."""
     if b.device.type == 'cpu':
         return nneg_qp_tiles_torch(G, b, L, lam1, lam2, mask, fista_iters,
                                    cd_sweeps, refine_rounds, cg_iters,
                                    inner_passes, m0, x0, converge, add_k,
-                                   tile_rounds)
+                                   tile_rounds, tile_exits)
     if b.device.type != 'cuda':
         raise ValueError(f'unsupported device {b.device}')
     _check_qp_inputs(G, b, mask, m0, x0)
-    _check_tile_rounds(tile_rounds, b)
+    _check_tile_counts(b, tile_rounds=tile_rounds, tile_exits=tile_exits)
     C, M, n = b.shape
     qp_geometry(n, M, _max_smem(b.device))
     sched = _qp_sched_array(qp_schedule(n, fista_iters, refine_rounds,
@@ -797,11 +864,14 @@ def nneg_qp_tiles(G, b, L=None, lam1=0.0, lam2=0.0, mask=None,
     if C * M > 0:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         _QP_LAUNCH(b.device, G.data_ptr(), b.data_ptr(), ptr(mask), ptr(m0),
-                   ptr(x0), x.data_ptr(), ptr(tile_rounds), C, M, n,
-                   float(lam1), float(lam2), sched.ctypes.data)
+                   ptr(x0), x.data_ptr(), ptr(tile_rounds), ptr(tile_exits),
+                   C, M, n, float(lam1), float(lam2), float(STALL),
+                   sched.ctypes.data)
         nneg_qp_tiles.launches += 1
-    elif tile_rounds is not None:
-        tile_rounds.zero_()
+    else:
+        for t in (tile_rounds, tile_exits):
+            if t is not None:
+                t.zero_()
     return x
 
 

@@ -312,7 +312,7 @@ class _TwinMatvecs:
         torch.matmul = self.matmul
 
 
-TAIL_EXITS = ('off', 'stable', 'xtol', 'cap')
+TAIL_EXITS = ('off', 'stable', 'stalled', 'xtol', 'cap')  # cuda_qp's
 
 
 def qp_tail(G, b, L=None, lam1=0.0, lam2=0.0, **kw):
@@ -323,9 +323,12 @@ def qp_tail(G, b, L=None, lam1=0.0, lam2=0.0, **kw):
     - ``rounds``: the continuation rounds the tile ran;
     - ``exit``: what ended them, an index into ``TAIL_EXITS``: 'stable'
       (no voxel added an atom or changed its working set in a round; with
-      0 rounds, the schedule's last round did), 'xtol' (x moved by at most
-      tol * the tile's largest max|b_eff|), 'cap' (the round cap, 3 *
-      npad) or 'off' (no continuation in the schedule);
+      0 rounds, the schedule's last round did), 'stalled' (each voxel was
+      stable or back in the working set of one of its last
+      ``cuda_qp.STALL_ROUNDS`` rounds, or in its anchor, without a lower
+      objective), 'xtol'
+      (x moved by at most tol * the tile's largest max|b_eff|), 'cap' (the
+      round cap, 3 * npad) or 'off' (no continuation in the schedule);
     - ``matvecs``: the matvecs on a voxel's chain (every voxel of a tile
       runs as many, one after another);
     - ``chain_nonzeros``: the tile's longest voxel chain counted in the
@@ -334,7 +337,11 @@ def qp_tail(G, b, L=None, lam1=0.0, lam2=0.0, **kw):
 
     and ``cap``, the schedule's round cap.  It reads the twin as
     :func:`solve_work` does (``_as_solve``'s locals as the solve runs), so
-    the twin's own arithmetic is what is read.  Returns (x, that dict)."""
+    the twin's own arithmetic is what is read, and it decides each exit
+    anew from the round's state (its stability, its working sets and
+    objectives against the history and the anchors the round started from,
+    and x against x before the round) rather than from the twin's verdict,
+    which it checks.  Returns (x, that dict)."""
     import sys
 
     import torch
@@ -347,12 +354,32 @@ def qp_tail(G, b, L=None, lam1=0.0, lam2=0.0, **kw):
     chain = {'matvecs': torch.zeros(C, M, dtype=torch.float64, device=dev),
              'chain_nonzeros': torch.zeros(C, M, dtype=torch.float64,
                                            device=dev)}
+    # the twin's `done` when last seen new, x, the history and the anchors
+    # then
     seen = {'done': None}
+    exit_of = {e: TAIL_EXITS.index(e) for e in TAIL_EXITS}
 
     def on_matvec(v, rows, name, run):
         run = run.double()
         chain['matvecs'] += run
         chain['chain_nonzeros'] += (v != 0).sum(-1).double() * run
+
+    def whole(v):                               # per voxel -> per tile
+        return v.flatten(1).all(1)
+
+    def round_exits(f):
+        """Each tile's exit by the continuation round just run (C,); 'cap'
+        where the round ended nothing."""
+        st, mn, fn = f['st'], f['mn'], f['fn']
+        settled = st
+        if f['stall']:
+            for pm, pf in seen['past'] + [seen['anchor']]:
+                settled = settled | ((mn == pm).all(-1)
+                                     & (fn >= pf - cuda_qp.STALL * pf.abs()))
+        moved = (f['xn'] - seen['x']).abs().flatten(1).amax(1)
+        return torch.where(whole(st), exit_of['stable'], torch.where(
+            whole(settled), exit_of['stalled'], torch.where(
+                moved <= f['xtol'], exit_of['xtol'], exit_of['cap'])))
 
     def local(frame, event, arg):
         # `done` is bound by the schedule's last round, then rebound after
@@ -360,15 +387,19 @@ def qp_tail(G, b, L=None, lam1=0.0, lam2=0.0, **kw):
         done = frame.f_locals.get('done') if event == 'line' else None
         prev = seen['done']
         if done is not None and done is not prev:
+            f = frame.f_locals
             if prev is None:
-                tail['exit'] = torch.where(done, 1, 3)
+                tail['exit'] = torch.where(done, exit_of['stable'],
+                                           exit_of['cap'])
             else:
                 tail['rounds'] += (~prev).long()
-                new = done & ~prev
-                tail['exit'] = torch.where(
-                    new, torch.where(frame.f_locals['st'], 1, 2),
-                    tail['exit'])
-            seen['done'] = done
+                ended = round_exits(f)
+                if not torch.equal(done, prev | (ended != exit_of['cap'])):
+                    raise AssertionError('the twin ended other tiles than '
+                                         'its round state says')
+                tail['exit'] = torch.where(done & ~prev, ended, tail['exit'])
+            seen.update(done=done, x=f['x'], past=f['past'],
+                        anchor=(f['am'], f['af']))
         return local
 
     def glob(frame, event, arg):

@@ -17,7 +17,9 @@ under the dense schedule, 512 tiles), on random n = 150 problems and n =
 160 problems of 256 voxels a tile, on phase 9's 512 CylinderZeppelinBall
 tiles (n = 26) and on the lane-group edges (random problems at n = 8, 9,
 16, 17 and M = 1, 7, 33, 129, plain, with a mask and with a warm start)
-its K2 solution, are compared with the reference's by ``torch.equal``.
+its K2 solution, are compared with the reference's by ``torch.equal``,
+and again off the tiles that K2's stall test ended in either variant (a
+variant that writes exits tells which).
 K1 (the first 512-tile launch, in vivo) and K2 (the first 512-tile
 launch of FreeWater Human, Mouse and CZB) are timed with CUDA events,
 the variants in turns: A B ... B A, ``--reps`` times over.
@@ -29,9 +31,10 @@ stage-2 dictionary in (ndwi, n_wm) layout and a scratch buffer, with the
 per-round budgets in the host schedule), else the first one (the
 dictionary transposed).  Each gets the production schedule packed its
 way.  K2's entry point takes a ``tile_rounds`` pointer (each tile's
-continuation rounds) since the port was traced; a variant whose
-``nneg_qp.cu`` has that word gets a null one, the launch that writes no
-count.
+continuation rounds) since the port was traced, and a ``tile_exits``
+pointer (what ended them) and the stall test's tolerance since that
+test; a variant whose ``nneg_qp.cu`` has the word gets a null pointer, the
+launch that writes no count, and ``cuda_qp.STALL``.
 
 ``--count`` counts the work K1 and K2 need on these inputs
 (:func:`amico_tpu_torch.testing.solve_work` on the first launch of each).
@@ -75,7 +78,9 @@ class Variant:
         self.rtab = 'rtab' in text
         self.scratch = self.rtab or 'scratch' in text
         with open(os.path.join(self.csrc, 'nneg_qp.cu')) as f:
-            self.counted = 'tile_rounds' in f.read()
+            text = f.read()
+        self.counts = ('tile_rounds' in text) + ('tile_exits' in text)
+        self.stall = 'tile_exits' in text
         out = os.path.join(os.path.dirname(cuda_build.BUILD_ROOT),
                            'kernel_bench', self.label, 'lib.so')
         t0 = time.time()
@@ -95,8 +100,8 @@ class Variant:
             15 if self.rtab else 11 if self.scratch else 10) \
             + [ci] * 6 + [cf, cf, vp, vp]
         lib.noddi_fused_launch.restype = ci
-        lib.nneg_qp_launch.argtypes = [vp] * (7 if self.counted else 6) \
-            + [ci] * 3 + [cf, cf, vp, vp]
+        lib.nneg_qp_launch.argtypes = [vp] * (6 + self.counts) \
+            + [ci] * 3 + [cf] * (2 + self.stall) + [vp, vp]
         lib.nneg_qp_launch.restype = ci
         self.lib = lib
 
@@ -135,15 +140,22 @@ class Variant:
             raise RuntimeError(f'[{self.label}] K1 launch failed: {err}')
         return est, x
 
-    def k2(self, G, b, lam2, sched, mask=None, m0=None, x0=None):
+    def k2(self, G, b, lam2, sched, mask=None, m0=None, x0=None,
+           exits=None):
+        """K2's x; ``exits``, a (C,) int32 tensor, receives each tile's
+        tail exit where this variant writes them."""
         import torch
+        from amico_tpu_torch.ops import cuda_qp
         C, M, n = b.shape
         x = torch.empty_like(b)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         ptrs = [G.data_ptr(), b.data_ptr(), ptr(mask), ptr(m0), ptr(x0),
-                x.data_ptr()] + ([None] if self.counted else [])
+                x.data_ptr()] + [None] * self.counts
+        if self.stall:
+            ptrs[-1] = ptr(exits)
         err = self.lib.nneg_qp_launch(
-            *ptrs, C, M, n, 0.0, lam2, sched.ctypes.data,
+            *ptrs, C, M, n, 0.0, lam2,
+            *([cuda_qp.STALL] if self.stall else []), sched.ctypes.data,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f'[{self.label}] K2 launch failed: {err}')
@@ -310,17 +322,29 @@ def bench_kernels(variants, reps, count, tail, tmp, record):
         del args, outs
     for name, G, b, lam2, kw, extra in k2_inputs(tmp):
         s = qp_sched(b.shape[-1], kw)
-        outs = {v.label: torch.cat([v.k2(G[i:i + STEP], b[i:i + STEP], lam2,
-                                         s, **{k: t[i:i + STEP]
-                                               for k, t in extra.items()})
-                                    for i in range(0, G.shape[0], STEP)])
-                for v in variants}
+        stalled_at = cuda_qp.TAIL_EXITS.index('stalled')
+        outs, stalled = {}, {}
+        for v in variants:
+            exits = torch.full((G.shape[0],), -1, dtype=torch.int32,
+                               device=b.device)
+            outs[v.label] = torch.cat([
+                v.k2(G[i:i + STEP], b[i:i + STEP], lam2, s,
+                     exits=exits[i:i + STEP],
+                     **{k: t[i:i + STEP] for k, t in extra.items()})
+                for i in range(0, G.shape[0], STEP)])
+            stalled[v.label] = exits == stalled_at
         torch.cuda.synchronize()
         for v in variants[1:]:
             same = torch.equal(outs[v.label], outs[ref.label])
+            off = ~(stalled[v.label] | stalled[ref.label])
+            same_off = torch.equal(outs[v.label][off], outs[ref.label][off])
             log(f'K2 {name}: {v.label} vs {ref.label}: x equal {same} '
-                f'(differing {int((outs[v.label] != outs[ref.label]).sum())})')
+                f'(differing {int((outs[v.label] != outs[ref.label]).sum())}'
+                f'); off the {int((~off).sum())} tiles stalled in either, '
+                f'x equal {same_off}')
             record.setdefault('k2_equal', {})[f'{v.label}/{name}'] = same
+            record.setdefault('k2_equal_off_stalled', {})[
+                f'{v.label}/{name}'] = same_off
         del outs
         if tail and not name.startswith('edge'):
             _, t = qp_tail(G, b, None, 0.0, lam2, **kw)

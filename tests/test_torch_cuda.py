@@ -156,7 +156,7 @@ def test_launcher_raises_on_a_refused_launch(cuda):
     import ctypes
     from amico_tpu_torch.ops.cuda_build import Launcher
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    launch = Launcher('nneg_qp_launch', [vp] * 7 + [ci] * 3 + [cf, cf, vp])
+    launch = Launcher('nneg_qp_launch', [vp] * 8 + [ci] * 3 + [cf] * 3 + [vp])
     G, b = qp_problems(1, 160, M=4)
     x = torch.empty_like(b)
     sched = cuda_qp._qp_sched_array(cuda_qp.qp_schedule(160))
@@ -164,8 +164,8 @@ def test_launcher_raises_on_a_refused_launch(cuda):
     with pytest.raises(RuntimeError, match='kernel launch failed '
                                            r'\(nneg_qp_launch\)'):
         launch(b.device, G.data_ptr(), b.data_ptr(), None, None, None,
-               x.data_ptr(), None, 1, 100_000, 160, 0.0, 0.0,
-               sched.ctypes.data)
+               x.data_ptr(), None, None, 1, 100_000, 160, 0.0, 0.0,
+               cuda_qp.STALL, sched.ctypes.data)
     assert nneg_qp_tiles.launches == before
     torch.cuda.synchronize()
 
@@ -234,6 +234,51 @@ def test_general_path_agrees_with_the_default(problem, exvivo):
     a = fused_agreement(args, (est_g, x_g), out)
     assert a['map_median'] < 1e-5, a
     assert a['obj_gap_p99'] < 1e-3 and a['obj_share_worse'] < 1e-2, a
+
+
+@pytest.mark.parametrize('case', ['Human', 'Mouse', 'czb-2', 'czb-8'])
+def test_k2_off_its_stalled_tiles_as_without_the_stall_test(
+        freewater, czb, case, monkeypatch):
+    """K2 with its stall test against K2 with the test off (cuda_qp.STALL
+    = -inf, which the kernel takes at launch), one build: on every tile
+    that does not end by 'stalled', x bit for bit, the same rounds and the
+    same exit; a tile that stalls does so no later than the tile ends
+    without the test.  On 64-tile FreeWater launches under their schedule
+    and on CZB-like launches (26 atoms, 192 voxels a tile, lambda2 2 and
+    8) under the dense one."""
+    from amico_tpu_torch.testing import (czb_tile_inputs,
+                                         freewater_tile_inputs)
+    if case.startswith('czb'):
+        model, kernels, htable = czb
+        G, b, _ = czb_tile_inputs(model, kernels, htable, 'cuda', 64, seed=3,
+                                  M=192)
+        lam2, kw = float(case.split('-')[1]), DENSE_AS_SOLVER_KW
+    else:
+        model, kernels, htable = freewater[case]
+        G, b = freewater_tile_inputs(model, kernels, htable, 'cuda', 64,
+                                     seed=3)
+        lam2, kw = 1e-3, DEFAULT_AS_SOLVER_KW
+    C = G.shape[0]
+
+    def launch():
+        rounds, exits = torch.full((2, C), -1, dtype=torch.int32,
+                                   device='cuda')
+        x = nneg_qp_tiles(G, b, None, 0.0, lam2, tile_rounds=rounds,
+                          tile_exits=exits, **kw)
+        return x, rounds, exits
+    x, rounds, exits = launch()
+    with monkeypatch.context() as mp:
+        mp.setattr(cuda_qp, 'STALL', float('-inf'))
+        x_off, rounds_off, exits_off = launch()
+    torch.cuda.synchronize()
+    stalled = exits == cuda_qp.TAIL_EXITS.index('stalled')
+    assert not bool((exits_off == cuda_qp.TAIL_EXITS.index('stalled')).any())
+    kept = ~stalled
+    assert int(kept.sum()) > 0
+    assert torch.equal(x[kept], x_off[kept])
+    assert torch.equal(rounds[kept], rounds_off[kept])
+    assert torch.equal(exits[kept], exits_off[kept])
+    assert bool((rounds[stalled] <= rounds_off[stalled]).all())
 
 
 def test_kernel_rejects_what_it_does_not_take(problem):
@@ -779,6 +824,54 @@ def test_k2_matches_stagewise_on_czb_tiles(czb):
         got = (a['map_medians'][i], a['map_p95s'][i], a['map_maxs'][i])
         assert all(g < bd for g, bd in zip(got, bounds)), a
     assert a['obj_gap_p99'] < 1e-5 and a['obj_share_worse'] < 1e-3, a
+
+
+@pytest.mark.parametrize('lam2', [2.0, 8.0])
+def test_k2_tail_matches_twin_on_czb_tiles(czb, lam2):
+    """K2 against its twin (on the card) on a CZB-like launch: 26 atoms,
+    192 voxels a tile, FISTA-started, lambda2 2 and 8.  x by v and a and
+    the objective at the bounds of the stagewise comparison above, and
+    every tile's continuation rounds and exit.  The kernel orders its float
+    reductions unlike the twin, and the stall test reads an objective to
+    about 2 ulps, so a tile may leave a round sooner or later, or by
+    another exit, on one than on the other: neither runs a tile to the
+    cap, three quarters of the tiles or more agree in both rounds and
+    exit, the mean rounds within a tenth, each exit's count within a tenth
+    of the tiles."""
+    from amico_tpu_torch.models.cylinder_zeppelin_ball import czb_estimates
+    from amico_tpu_torch.testing import (TAIL_EXITS, czb_tile_inputs,
+                                         qp_agreement, qp_tail,
+                                         tail_histogram)
+    model, kernels, htable = czb
+    G, b, _ = czb_tile_inputs(model, kernels, htable, 'cuda', 64, seed=3,
+                              M=192)
+    C = G.shape[0]
+    rounds, exits = torch.full((2, C), -1, dtype=torch.int32, device='cuda')
+    x_k = nneg_qp_tiles(G, b, None, 0.0, lam2, tile_rounds=rounds,
+                        tile_exits=exits, **DENSE_AS_SOLVER_KW)
+    x_t, tail = qp_tail(G, b, None, 0.0, lam2, **DENSE_AS_SOLVER_KW)
+    torch.cuda.synchronize()
+    Rs = torch.as_tensor(model.Rs, dtype=torch.float32, device='cuda')
+    a = qp_agreement(G, b, 0.0, lam2, x_k, x_t,
+                     maps=lambda x: czb_estimates(x, Rs, 4)[..., :2])
+    for i, bounds in enumerate(((1e-5, 1e-4, 1e-3), (1e-4, 1e-3, 1e-2))):
+        got = (a['map_medians'][i], a['map_p95s'][i], a['map_maxs'][i])
+        assert all(g < bd for g, bd in zip(got, bounds)), a
+    assert a['obj_gap_p99'] < 1e-5 and a['obj_share_worse'] < 1e-3, a
+    k = {'rounds': rounds.long().cpu(), 'exit': exits.long().cpu()}
+    t = {key: tail[key].cpu() for key in ('rounds', 'exit')}
+    hk = tail_histogram(dict(tail, **k))
+    ht = tail_histogram(dict(tail, **t))
+    report = (hk, ht, k, t)
+    cap = TAIL_EXITS.index('cap')
+    assert bool((k['exit'] != cap).all() & (t['exit'] != cap).all()), report
+    same = (k['rounds'] == t['rounds']) & (k['exit'] == t['exit'])
+    assert int(same.sum()) >= 0.75 * C, report
+    mk, mt = float(k['rounds'].float().mean()), float(t['rounds'].float()
+                                                      .mean())
+    assert abs(mk - mt) <= 0.1 * max(mt, 1.0), report
+    assert all(abs(hk['exit'][e] - ht['exit'][e]) <= 0.1 * C
+               for e in TAIL_EXITS), report
 
 
 def test_czb_fit_on_cuda_both_backends(czb):

@@ -6,6 +6,8 @@ Here: the twin's result does not depend on the order of a tile's voxels (the
 kernel maps voxels to lane groups by position and relies on it),
 ``testing.qp_tail`` reads rounds and exits as the schedule implies, and
 ``cuda_qp.qp_geometry`` describes the launch that csrc/nneg_qp.cu makes."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -122,6 +124,123 @@ def test_tail_of_inexact_cg_tiles_reaches_the_cap():
     assert sum(hist['exit'].values()) == 8
 
 
+def stall_off(monkeypatch):
+    """The stall test off, the continuation's other exits as they were:
+    no objective passes a tolerance of -inf."""
+    monkeypatch.setattr(cuda_qp, 'STALL', float('-inf'))
+
+
+def objective(G, b, lam2, x):
+    G, b, x = G.double(), b.double(), x.double()
+    return 0.5 * (x * (x @ G.transpose(1, 2))).sum(-1) - (b * x).sum(-1) \
+        + 0.5 * lam2 * (x * x).sum(-1)
+
+
+def test_tail_of_a_cycling_voxel_stalls(monkeypatch):
+    """One voxel of the churning tiles, a tile of its own: x wanders at no
+    cost in float32 along the near-collinear pair of atoms 0 and 6 by more
+    than the tile's x tolerance, and atom 8, its optimum at the prune gate,
+    is pruned and added again every round.  Without the stall test the
+    tail runs to the cap, 48 rounds; with it the voxel is done after one
+    round (it is back in its working set, its objective no lower), within
+    1e-6 relative of the capped objective."""
+    G, b = collinear_problems(2, 11)
+    G, b = G[:1], b[:1, 18:19]
+    x, tail = qp_tail(G, b, None, 0.0, 1e-3, **DEFAULT_AS_SOLVER_KW)
+    assert (tail['rounds'].tolist(), tail['exit'].tolist()) == \
+        ([1], [TAIL_EXITS.index('stalled')])
+    stall_off(monkeypatch)
+    x_cap, capped = qp_tail(G, b, None, 0.0, 1e-3, **DEFAULT_AS_SOLVER_KW)
+    assert (capped['rounds'].tolist(), capped['exit'].tolist()) == \
+        ([48], [TAIL_EXITS.index('cap')])
+    o, o_cap = objective(G, b, 1e-3, x), objective(G, b, 1e-3, x_cap)
+    assert float((o - o_cap).abs() / o_cap.abs()) < 1e-6
+
+
+def czb_tile(name):
+    """G (1, 26, 26) and b (1, 192, 26) of a CylinderZeppelinBall tile as
+    K2 received it on the card in the benchmark's czb.refit (850 samples,
+    26 atoms, 192 voxels), from tests/data."""
+    d = np.load(os.path.join(os.path.dirname(__file__), 'data', name))
+    return torch.from_numpy(d['G'])[None], torch.from_numpy(d['b'])[None]
+
+
+def test_tail_of_a_period_three_cycle_stalls(monkeypatch):
+    """A tile at lambda2 2 (czb_period3_tile.npz) in which one voxel prunes
+    two near-collinear zeppelins in one round and adds them back one a
+    round, a cycle of period 3 with its objective flat to float32's last
+    bits.  With the sets of its last STALL_ROUNDS rounds the tile stalls
+    in its first round; with those of the last two alone, in its third, at
+    the voxel's anchor; with the stall test off it runs to the cap, 96
+    rounds, within 1e-6 relative of the stalled objectives."""
+    G, b = czb_tile('czb_period3_tile.npz')
+    x, tail = qp_tail(G, b, None, 0.0, 2.0, **DENSE_AS_SOLVER_KW)
+    assert (tail['rounds'].tolist(), tail['exit'].tolist()) == \
+        ([1], [TAIL_EXITS.index('stalled')])
+    with monkeypatch.context() as mp:
+        mp.setattr(cuda_qp, 'STALL_ROUNDS', 2)
+        x_2, two = qp_tail(G, b, None, 0.0, 2.0, **DENSE_AS_SOLVER_KW)
+    assert (two['rounds'].tolist(), two['exit'].tolist()) == \
+        ([3], [TAIL_EXITS.index('stalled')])
+    stall_off(monkeypatch)
+    x_cap, capped = qp_tail(G, b, None, 0.0, 2.0, **DENSE_AS_SOLVER_KW)
+    assert (capped['rounds'].tolist(), capped['exit'].tolist()) == \
+        ([96], [TAIL_EXITS.index('cap')])
+    o_cap = objective(G, b, 2.0, x_cap)
+    for x_s in (x, x_2):
+        o = objective(G, b, 2.0, x_s)
+        assert float(((o - o_cap).abs() / o_cap.abs()).max()) < 1e-6
+
+
+def test_tail_of_a_period_five_cycle_stalls(monkeypatch):
+    """A tile at lambda2 8 (czb_period5_tile.npz, the tile that reached the
+    cap in each lambda2 = 8 fit of one czb.refit run) in which one voxel
+    prunes four near-collinear cylinders in one round and adds them back
+    one a round: a cycle of period 5, longer than the STALL_ROUNDS rounds
+    of history.  The voxel's anchor ends it in the tile's sixth round;
+    with the stall test off it runs to the cap, 96 rounds, within 1e-6
+    relative of the stalled objectives (of its 180 voxels with a signal;
+    the other 12 are the tile's padding, at x = 0)."""
+    G, b = czb_tile('czb_period5_tile.npz')
+    assert cuda_qp.STALL_ROUNDS < 5
+    x, tail = qp_tail(G, b, None, 0.0, 8.0, **DENSE_AS_SOLVER_KW)
+    assert (tail['rounds'].tolist(), tail['exit'].tolist()) == \
+        ([6], [TAIL_EXITS.index('stalled')])
+    stall_off(monkeypatch)
+    x_cap, capped = qp_tail(G, b, None, 0.0, 8.0, **DENSE_AS_SOLVER_KW)
+    assert (capped['rounds'].tolist(), capped['exit'].tolist()) == \
+        ([96], [TAIL_EXITS.index('cap')])
+    live = b.abs().amax(-1) > 0
+    assert int(live.sum()) == 180
+    o, o_cap = objective(G, b, 8.0, x), objective(G, b, 8.0, x_cap)
+    assert float(((o - o_cap).abs() / o_cap.abs())[live].max()) < 1e-6
+
+
+def test_tail_of_churning_tiles_under_both_tests(monkeypatch):
+    """The churning tiles (pairs at eps 1e-2) under FreeWater's schedule:
+    without the stall test every tile runs to the cap, 48 rounds; with it
+    every tile stalls within 9 rounds, its objectives within 1e-6 relative
+    of the capped ones."""
+    G, b = collinear_problems(8, 11)
+    x, tail = qp_tail(G, b, None, 0.0, 1e-3, **DEFAULT_AS_SOLVER_KW)
+    assert bool((tail['rounds'] <= 9).all()), tail['rounds']
+    assert tail_histogram(tail)['exit']['stalled'] == 8
+    stall_off(monkeypatch)
+    x_cap, capped = qp_tail(G, b, None, 0.0, 1e-3, **DEFAULT_AS_SOLVER_KW)
+    assert capped['rounds'].tolist() == [48] * 8
+    assert tail_histogram(capped)['exit']['cap'] == 8
+    o, o_cap = objective(G, b, 1e-3, x), objective(G, b, 1e-3, x_cap)
+    assert float(((o - o_cap).abs() / o_cap.abs()).max()) < 1e-6
+
+
+def test_tail_exits_are_the_kernels():
+    assert TAIL_EXITS == cuda_qp.TAIL_EXITS
+    src = open(cuda_qp.__file__.replace('ops/cuda_qp.py',
+                                        'csrc/nneg_qp.cu')).read()
+    assert 'enum TailExit { ' + ', '.join(
+        f'TAIL_{e.upper()}' for e in TAIL_EXITS) + ' };' in src
+
+
 def test_tail_rounds_agree_with_solve_work():
     """qp_tail's rounds against testing.solve_work's running-tile matvec
     count: every voxel runs the schedule's matvecs, plus inner (1 + cont_cg)
@@ -142,20 +261,21 @@ def test_tail_rounds_agree_with_solve_work():
 
 # n -> (group width, coefficients a lane, warps a block, blocks a tile,
 # voxels in flight, state, dynamic shared memory bytes a block) at 128
-# voxels a tile on an H100: G at 32 * per_lane floats a row, 2 * per_lane
-# + 1 words a voxel, then x and b_eff (state 2) or x alone (state 1) as
-# they fit
+# voxels a tile on an H100: G at 32 * per_lane floats a row, 6 * per_lane
+# + 6 words a voxel (its working-set and mask words, those of its 3 rounds
+# before the last and of its anchor, its scale, its last 4 objectives and
+# its anchor's), then x and b_eff (state 2) or x alone (state 1) as they fit
 GEOMETRY = {
-    1: (8, 1, 32, 2, 256, 2, (32 + 384 + 2 * 128) * 4),
-    8: (8, 1, 32, 2, 256, 2, (256 + 384 + 2 * 1024) * 4),
-    9: (16, 1, 32, 2, 128, 2, (288 + 384 + 2 * 1152) * 4),
-    11: (16, 1, 32, 2, 128, 2, (352 + 384 + 2 * 1408) * 4),
-    16: (16, 1, 32, 2, 128, 2, (512 + 384 + 2 * 2048) * 4),
-    17: (32, 1, 32, 2, 64, 2, (544 + 384 + 2 * 2176) * 4),
-    26: (32, 1, 32, 2, 64, 2, (832 + 384 + 2 * 3328) * 4),
-    32: (32, 1, 32, 2, 64, 2, (1024 + 384 + 2 * 4096) * 4),
-    33: (32, 2, 16, 1, 16, 2, (2112 + 640 + 2 * 4224) * 4),
-    160: (32, 5, 16, 1, 16, 1, (25600 + 1408 + 20480) * 4),
+    1: (8, 1, 32, 2, 256, 2, (32 + 1536 + 2 * 128) * 4),
+    8: (8, 1, 32, 2, 256, 2, (256 + 1536 + 2 * 1024) * 4),
+    9: (16, 1, 32, 2, 128, 2, (288 + 1536 + 2 * 1152) * 4),
+    11: (16, 1, 32, 2, 128, 2, (352 + 1536 + 2 * 1408) * 4),
+    16: (16, 1, 32, 2, 128, 2, (512 + 1536 + 2 * 2048) * 4),
+    17: (32, 1, 32, 2, 64, 2, (544 + 1536 + 2 * 2176) * 4),
+    26: (32, 1, 32, 2, 64, 2, (832 + 1536 + 2 * 3328) * 4),
+    32: (32, 1, 32, 2, 64, 2, (1024 + 1536 + 2 * 4096) * 4),
+    33: (32, 2, 16, 1, 16, 2, (2112 + 2304 + 2 * 4224) * 4),
+    160: (32, 5, 16, 1, 16, 1, (25600 + 4608 + 20480) * 4),
 }
 
 
@@ -174,12 +294,12 @@ def test_launch_geometry_edges():
         cuda_qp.qp_geometry(0, 128, H100_SMEM)
     # 256 voxels of 160 atoms: neither x nor b_eff fits beside G
     g = cuda_qp.qp_geometry(160, 256, H100_SMEM)
-    assert (g.state, g.smem) == (0, (25600 + 256 * 11) * 4)
-    # G and the per-voxel words alone overflow: at 160 atoms from 2,933
+    assert (g.state, g.smem) == (0, (25600 + 256 * 36) * 4)
+    # G and the per-voxel words alone overflow: at 160 atoms from 897
     # voxels on an H100, at once on a card of 48 KB a block
-    assert cuda_qp.qp_geometry(160, 2932, H100_SMEM).state == 0
+    assert cuda_qp.qp_geometry(160, 896, H100_SMEM).state == 0
     with pytest.raises(NotImplementedError, match='shared memory'):
-        cuda_qp.qp_geometry(160, 2933, H100_SMEM)
+        cuda_qp.qp_geometry(160, 897, H100_SMEM)
     with pytest.raises(NotImplementedError, match='shared memory'):
         cuda_qp.qp_geometry(160, 128, 48 * 1024)
     assert cuda_qp.qp_geometry(11, 0, H100_SMEM).smem == 352 * 4

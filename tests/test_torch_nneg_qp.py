@@ -18,7 +18,7 @@ from amico_tpu.ops.pallas_qp import nneg_qp_tiles_pallas
 from amico_tpu_torch.models import base
 from amico_tpu_torch.ops import cuda_qp
 from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, nneg_qp_tiles_torch
-from amico_tpu_torch.testing import random_qp_problems
+from amico_tpu_torch.testing import TAIL_EXITS, qp_tail, random_qp_problems
 
 torch.set_num_threads(1)
 
@@ -127,13 +127,21 @@ def test_twin_matches_pallas(case):
         assert (x_t >= 0).all()
 
 
-def test_converge_exits_per_tile():
+CONVERGE_EXITS_KW = dict(fista_iters=0, refine_rounds=1, cg_iters=2,
+                         converge=2)
+
+
+def test_converge_exits_per_tile(monkeypatch):
     """With an inexact CG budget (2 steps) every continuation round moves
     x, so the number of rounds a voxel runs shows in its result.  The
     Pallas kernel runs each tile's rounds until the whole tile is done;
     the twin does too (within 1e-5), and solving each voxel as a tile of
-    its own (a per-voxel exit) lands further away than that."""
-    kw = dict(fista_iters=0, refine_rounds=1, cg_iters=2, converge=2)
+    its own (a per-voxel exit) lands further away than that.  The twin
+    runs with its stall test off (cuda_qp.STALL = -inf), the exits the
+    Pallas kernel has; test_converge_stall_against_pallas holds it with
+    the test on."""
+    monkeypatch.setattr(cuda_qp, 'STALL', float('-inf'))
+    kw = CONVERGE_EXITS_KW
     G, b = problems(n=11)
     x_j = pallas(G, b, 0.0, 1e-3, **kw)
     x_t = twin(G, b, 0.0, 1e-3, **kw)
@@ -142,6 +150,35 @@ def test_converge_exits_per_tile():
     x_v = twin(np.repeat(G, M, axis=0), b.reshape(C * M, 1, n), 0.0, 1e-3,
                **kw).reshape(C, M, n)
     assert np.abs(x_v - x_j).max() > 1e-5, np.abs(x_v - x_j).max()
+
+
+def test_converge_stall_against_pallas(monkeypatch):
+    """The tiles of test_converge_exits_per_tile with the twin's stall
+    test on, which the Pallas kernel does not have: it ends the second
+    tile by 'stalled', two rounds before the Pallas kernel's 'xtol' does,
+    at an objective within 1e-6 relative of the Pallas kernel's; the tiles
+    it does not end are within 1e-5 of the Pallas kernel's x."""
+    kw = CONVERGE_EXITS_KW
+    G, b = problems(n=11)
+    x_j = pallas(G, b, 0.0, 1e-3, **kw)
+    x_t, tail = qp_tail(torch.from_numpy(G), torch.from_numpy(b), None, 0.0,
+                        1e-3, **kw)
+    x_t = x_t.numpy()
+    assert np.array_equal(x_t, twin(G, b, 0.0, 1e-3, **kw))
+    stalled = (tail['exit'] == TAIL_EXITS.index('stalled')).numpy()
+    assert stalled.tolist() == [False, True, False]
+    err = np.abs(x_t - x_j)
+    assert err[~stalled].max() < 1e-5, err[~stalled].max()
+    o_j, o_t = objective(G, b, 0.0, 1e-3, x_j), \
+        objective(G, b, 0.0, 1e-3, x_t)
+    gap = np.abs(o_t - o_j) / (np.abs(o_j) + 1e-6)
+    assert gap[stalled].max() < 1e-6, gap[stalled].max()
+    # the Pallas kernel's exits: the twin's with the stall test off
+    monkeypatch.setattr(cuda_qp, 'STALL', float('-inf'))
+    _, off = qp_tail(torch.from_numpy(G), torch.from_numpy(b), None, 0.0,
+                     1e-3, **kw)
+    assert off['exit'][1] == TAIL_EXITS.index('xtol')
+    assert (off['rounds'] - tail['rounds']).tolist() == [0, 2, 0]
 
 
 @pytest.mark.parametrize('name', ['DEFAULT_AS_SOLVER_KW',

@@ -21,7 +21,7 @@ from amico_tpu_torch import trace
 from amico_tpu_torch.models.base import DEFAULT_AS_SOLVER_KW
 from amico_tpu_torch.ops.cuda_qp import nneg_qp_tiles, nneg_qp_tiles_torch
 from amico_tpu_torch.sweep import SubjectSweep
-from amico_tpu_torch.testing import qp_tail
+from amico_tpu_torch.testing import TAIL_EXITS, qp_tail
 from test_torch_k2_tail import INEXACT, collinear_problems
 
 torch.set_num_threads(1)
@@ -199,8 +199,9 @@ def test_last_fit_timers_come_from_the_spans(study):
 def test_k2_rounds_counted_in_a_fit(study, monkeypatch):
     """Traced, a FreeWater fit counts K2's tiles and continuation rounds
     (the twin's, on the CPU; under a schedule short enough that tiles
-    continue) on its ``fit`` span, as each launch's rounds sum; the maps
-    are those of an untraced fit."""
+    continue) on its ``fit`` span, as each launch's rounds sum, and the
+    tiles whose continuation stalled or was capped, as each launch's exits
+    say; the maps are those of an untraced fit."""
     from amico_tpu_torch.models import _fitops, base
     monkeypatch.setattr(base, 'DEFAULT_AS_SOLVER_KW', INEXACT)
     launched = []
@@ -208,7 +209,10 @@ def test_k2_rounds_counted_in_a_fit(study, monkeypatch):
     def counted(*a, **kw):
         x = nneg_qp_tiles(*a, **kw)
         if kw.get('tile_rounds') is not None:
-            launched.append((a[1].shape[0], int(kw['tile_rounds'].sum())))
+            exits = kw['tile_exits']
+            launched.append((a[1].shape[0], int(kw['tile_rounds'].sum()),
+                             *(int((exits == TAIL_EXITS.index(e)).sum())
+                               for e in ('stalled', 'cap'))))
         return x
     monkeypatch.setattr(_fitops, 'nneg_qp_tiles', counted)
     ev = evaluation(study)
@@ -221,8 +225,10 @@ def test_k2_rounds_counted_in_a_fit(study, monkeypatch):
     counts = trace.spans(name='fit')[-1]['counts']
     n_tiles = ev.model._plan_cache[2][32].n_tiles
     assert len(launched) == ev.model._last_fit_timers['n_chunks']
-    assert counts['k2.tiles'] == sum(c for c, _ in launched) == n_tiles
-    assert counts['k2.rounds'] == sum(r for _, r in launched) > 0
+    assert counts['k2.tiles'] == sum(c[0] for c in launched) == n_tiles
+    assert counts['k2.rounds'] == sum(c[1] for c in launched) > 0
+    assert counts['k2.stalled'] == sum(c[2] for c in launched)
+    assert counts['k2.capped'] == sum(c[3] for c in launched)
     # K2's counts are the model fit's; the scatter's volumes are counted
     # after it, on the host route here
     assert trace.spans(name='model_fit')[-1]['counts'] == {
@@ -308,55 +314,126 @@ def test_spans_from_threads_all_land():
      dict(DEFAULT_AS_SOLVER_KW, converge=False)),
 ], ids=['inexact', 'default', 'no-converge'])
 def test_twin_tile_rounds_equal_qp_tail(tiles, lam2, kw):
+    """The twin's own counters against qp_tail's reading of its rounds,
+    which decides each exit anew from the round's state."""
     G, b = tiles()
     x, tail = qp_tail(G, b, None, 0.0, lam2, **kw)
-    rounds = torch.full((b.shape[0],), -1, dtype=torch.int32)
-    x_c = nneg_qp_tiles(G, b, None, 0.0, lam2, tile_rounds=rounds, **kw)
+    rounds, exits = torch.full((2, b.shape[0]), -1, dtype=torch.int32)
+    x_c = nneg_qp_tiles(G, b, None, 0.0, lam2, tile_rounds=rounds,
+                        tile_exits=exits, **kw)
     assert torch.equal(x_c, x)
     assert rounds.tolist() == tail['rounds'].tolist()
-    with pytest.raises(ValueError, match='tile_rounds'):
-        nneg_qp_tiles_torch(G, b, None, 0.0, lam2, **kw,
-                            tile_rounds=torch.zeros(b.shape[0]))
+    assert exits.tolist() == tail['exit'].tolist()
+    for name in ('tile_rounds', 'tile_exits'):
+        with pytest.raises(ValueError, match=name):
+            nneg_qp_tiles_torch(G, b, None, 0.0, lam2, **kw,
+                                **{name: torch.zeros(b.shape[0])})
 
 
 @pytest.mark.cuda
-def test_kernel_tile_rounds_against_the_twins():
-    """On the card: K2's per-tile continuation rounds against qp_tail's
-    (the twin on the same tiles, on the card), and the maps bit for bit
-    those of a launch without the counter.  Where a tile's rounds are set
-    by the support each round adds, the counts are equal tile by tile.  On
-    the churning tiles of test_torch_k2_tail they are not: the kernel
-    orders its float reductions unlike the twin, so a tile whose working
-    set churns between near-collinear atoms passes its exit test in
-    another round (a quarter of the tiles here); there the mean count
-    agrees within 5% and each bin of ``tail_histogram`` within a tenth of
-    the tiles."""
+def test_kernel_tile_rounds_against_the_twins(monkeypatch):
+    """On the card: K2's per-tile continuation rounds and exits against
+    qp_tail's (the twin on the same tiles, on the card), and the maps bit
+    for bit those of a launch without the counters.  Where a tile's rounds
+    are set by the support each round adds, the counts are equal tile by
+    tile.  On the churning tiles of test_torch_k2_tail they are not: the
+    kernel orders its float reductions unlike the twin, so a tile whose
+    working set churns between near-collinear atoms passes its exit test
+    in another round (a quarter of the tiles here); there the mean count
+    agrees within 5% and each bin of ``tail_histogram`` (rounds and exits)
+    within a tenth of the tiles.  Under FreeWater's schedule these tiles
+    run with the stall test off on both (cuda_qp.STALL = -inf, which the
+    kernel takes at launch), the rule these bounds were set for;
+    test_kernel_stalls_churning_tiles_as_the_twin holds them with it on."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card (torch.cuda.is_available() is false)')
     from test_torch_k2_tail import dense_solution_problems
+    from amico_tpu_torch.ops import cuda_qp
     from amico_tpu_torch.testing import tail_histogram
     G, b, _ = dense_solution_problems(C=8, M=128)
+    # (tiles, lam2, schedule, counts equal tile by tile, stall test on)
     cases = [(G, b, 0.0, dict(fista_iters=0, refine_rounds=2, cg_iters=16,
-                              converge=True), True)]
-    cases += [(*collinear_problems(64, 11, seed=s), 1e-3, kw, False)
-              for s, kw in ((0, INEXACT), (1, DEFAULT_AS_SOLVER_KW))]
-    for G, b, lam2, kw, exact in cases:
+                              converge=True), True, True)]
+    cases += [(*collinear_problems(64, 11, seed=s), 1e-3, kw, False, stall)
+              for s, kw, stall in ((0, INEXACT, True),
+                                   (1, DEFAULT_AS_SOLVER_KW, False))]
+    for G, b, lam2, kw, exact, stall in cases:
         G, b = G.cuda(), b.cuda()
-        _, tail = qp_tail(G, b, None, 0.0, lam2, **kw)
-        rounds = torch.full((b.shape[0],), -1, dtype=torch.int32,
-                            device='cuda')
-        x_on = nneg_qp_tiles(G, b, None, 0.0, lam2, tile_rounds=rounds, **kw)
-        x_off = nneg_qp_tiles(G, b, None, 0.0, lam2, **kw)
-        torch.cuda.synchronize()
+        with monkeypatch.context() as mp:
+            if not stall:
+                mp.setattr(cuda_qp, 'STALL', float('-inf'))
+            _, tail = qp_tail(G, b, None, 0.0, lam2, **kw)
+            rounds, exits = torch.full((2, b.shape[0]), -1,
+                                       dtype=torch.int32, device='cuda')
+            x_on = nneg_qp_tiles(G, b, None, 0.0, lam2, tile_rounds=rounds,
+                                 tile_exits=exits, **kw)
+            x_off = nneg_qp_tiles(G, b, None, 0.0, lam2, **kw)
+            torch.cuda.synchronize()
         assert torch.equal(x_on, x_off)
-        k, t = rounds.long().cpu(), tail['rounds'].cpu()
+        k = {'rounds': rounds.long().cpu(), 'exit': exits.long().cpu()}
+        t = {key: tail[key].cpu() for key in k}
         if exact:
-            assert k.tolist() == t.tolist(), kw
+            assert k['rounds'].tolist() == t['rounds'].tolist(), kw
+            assert k['exit'].tolist() == t['exit'].tolist(), kw
             continue
-        assert bool(((k >= 0) & (k <= tail['cap'])).all())
-        assert abs(float(k.float().mean()) / float(t.float().mean()) - 1) \
-            < 0.05, (k, t)
-        hk = tail_histogram(dict(tail, rounds=k))['rounds']
-        ht = tail_histogram(dict(tail, rounds=t))['rounds']
-        assert all(abs(hk[key] - ht[key]) <= 0.1 * k.numel() for key in ht), \
-            (hk, ht)
+        assert bool(((k['rounds'] >= 0) & (k['rounds'] <= tail['cap'])).all())
+        assert abs(float(k['rounds'].float().mean())
+                   / float(t['rounds'].float().mean()) - 1) < 0.05, (k, t)
+        hk = tail_histogram(dict(tail, **k))
+        ht = tail_histogram(dict(tail, **t))
+        assert all(abs(hk[h][key] - ht[h][key]) <= 0.1 * b.shape[0]
+                   for h in ht for key in ht[h]), (hk, ht)
+
+
+@pytest.mark.cuda
+def test_kernel_stalls_churning_tiles_as_the_twin(monkeypatch):
+    """On the card, the churning tiles of test_torch_k2_tail under
+    FreeWater's schedule (64 tiles, seed 1), where every voxel's working
+    set cycles between near-collinear atoms: without the stall test K2
+    runs every tile to the cap, 48 rounds; with it K2 and its twin (on the
+    card) end every tile by 'stalled' or 'stable' within a quarter of the
+    cap.  Which round a tile stalls in is set by float32 rounding (the
+    stall test reads an objective to about 2 ulps, and the kernel orders
+    its reductions unlike the twin), so the rounds are held by bins: each
+    bin of ``tail_histogram`` within a tenth of the tiles.  Each voxel's
+    objective (float64, from x) is within 1e-5 relative of the capped
+    kernel's and of the twin's: x wanders along the near-collinear pair
+    at a cost near float32's resolution, so where it stops moves the
+    objective by a few of its ulps (the kernel against its capped self or
+    the twin: up to 1.7e-6 on an H100; the twin against its capped self:
+    1.2e-7 on the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card (torch.cuda.is_available() is false)')
+    from test_torch_k2_tail import objective
+    from amico_tpu_torch.ops import cuda_qp
+    from amico_tpu_torch.testing import tail_histogram
+    G, b = (t.cuda() for t in collinear_problems(64, 11, seed=1))
+    C, kw, lam2 = G.shape[0], DEFAULT_AS_SOLVER_KW, 1e-3
+
+    def kernel():
+        rounds, exits = torch.full((2, C), -1, dtype=torch.int32,
+                                   device='cuda')
+        x = nneg_qp_tiles(G, b, None, 0.0, lam2, tile_rounds=rounds,
+                          tile_exits=exits, **kw)
+        return x, {'rounds': rounds.long().cpu(), 'exit': exits.long().cpu()}
+    x_k, k = kernel()
+    x_t, tail = qp_tail(G, b, None, 0.0, lam2, **kw)
+    t = {key: tail[key].cpu() for key in k}
+    with monkeypatch.context() as mp:
+        mp.setattr(cuda_qp, 'STALL', float('-inf'))
+        x_cap, capped = kernel()
+    report = (tail_histogram(dict(tail, **k)), tail_histogram(dict(tail, **t)),
+              k, t)
+    assert capped['rounds'].tolist() == [tail['cap']] * C, capped
+    ends = torch.tensor([TAIL_EXITS.index(e) for e in ('stable', 'stalled')])
+    for r in (k, t):
+        assert bool(torch.isin(r['exit'], ends).all()), report
+        assert int(r['rounds'].max()) <= tail['cap'] // 4, report
+    hk, ht = report[:2]
+    assert all(abs(hk[h][key] - ht[h][key]) <= 0.1 * C
+               for h in ht for key in ht[h]), report
+    o_k = objective(G, b, lam2, x_k)
+    gaps = [float(((o_k - o).abs() / o.abs()).max())
+            for o in (objective(G, b, lam2, x_cap),
+                      objective(G, b, lam2, x_t))]
+    assert max(gaps) < 1e-5, (gaps, report)
