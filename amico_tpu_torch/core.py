@@ -9,21 +9,14 @@ Same public surface, call order and config keys as the JAX package:
 
 Host stages (NIfTI I/O, native preprocessing, LUT generation and
 resampling, map writing) are the port's copies of the JAX package's
-jax-free modules.  The fit's results are scattered into volumes where
-their rows are: on the card for a gathered one-card fit, each volume then
-brought back in one pinned copy; on the CPU otherwise.
-The fit uploads the padded float32 signal once to the ``device`` config's
-device when it fits in ``max_device_bytes`` (the JAX facade's staging
-rule); the DTI direction fit and the model's tile driver share that
-upload.  Beyond the budget the DTI fit takes the host array and the tile
-driver streams host-tiled chunks.  As in the JAX facade, a re-fit of the
-same loaded data reuses the masked signal, its upload and the DTI
-directions.  The Rician debias runs on the same device inside
-``load_data``; ``profile_dir`` records the model fit with
-``torch.profiler``.  Each stage runs in a span of ``trace`` (load_data,
-load_kernels, the fit's stage_voxels, directions, model_fit and scatter,
-save_results), from which the stage timers (``timers``,
-``last_fit_timers()``) are read.  The ``mesh`` config
+jax-free modules.  Within ``max_device_bytes`` the fit uploads the padded
+float32 signal once to the ``device`` config's device (the JAX facade's
+staging rule), for the DTI direction fit and the model's tile driver; the
+results are scattered into volumes where their rows are.  As in the JAX
+facade, a re-fit of the same loaded data reuses the masked signal, its
+upload and the DTI directions, here one ``_Signal`` record that the facade
+owns.  Each stage runs in a span of ``trace``, from which the stage timers
+(``timers``, ``last_fit_timers()``) are read.  The ``mesh`` config
 (``parallel.make_mesh``) spreads the tile driver's chunks over the cards
 of one process; ``distributed`` (after ``parallel.dist.initialize``) gives
 each process a slab of the voxels on its own card, gathers the maps on
@@ -36,6 +29,8 @@ import contextlib
 import glob
 import pickle
 import time
+from collections import namedtuple
+from dataclasses import dataclass, field
 from os import cpu_count, makedirs, remove, replace
 from os.path import exists, isfile, join as pjoin
 
@@ -53,8 +48,10 @@ from . import models as _models
 from . import pipeline as _pl
 from . import trace
 from .device import DEFAULT_DEVICE, resolve_device
-from .models.base import DEFAULT_MAX_DEVICE_BYTES, _concrete, _to_host
+from .models.base import (DEFAULT_MAX_DEVICE_BYTES, Handoff, _concrete,
+                          _to_host)
 from .parallel import dist
+from .warm import Kept, PerDevice
 
 try:
     from threadpoolctl import ThreadpoolController
@@ -75,14 +72,23 @@ def _profiler(prof_dir: str, device: torch.device):
                    on_trace_ready=tensorboard_trace_handler(prof_dir))
 
 
-def _kept(cache: dict, name: str, device: torch.device, make):
-    """``cache[name][device]``: the host array ``make()`` on ``device``,
-    made on a miss and kept (on the CPU, the array itself)."""
-    per = cache.setdefault(name, {})
-    t = per.get(device)
-    if t is None:
-        t = per[device] = torch.from_numpy(make()).to(device)
-    return t
+# the DTI directions of a fit and their float32 copies, one a device
+_Dirs = namedtuple('_Dirs', 'DIRs copies')
+
+
+@dataclass
+class _Signal:
+    """The facade's copies of one loaded signal, kept across its fits: the
+    masked rows, the native gather's padded (N+1, nS) buffer, the padded
+    signal, flat index and masked mean b0 a device, each process's slab of
+    ``y`` and the DTI directions."""
+    y: np.ndarray
+    padded: np.ndarray | None = None
+    uploads: PerDevice = field(default_factory=PerDevice)
+    flat: PerDevice = field(default_factory=PerDevice)
+    mean_b0: PerDevice = field(default_factory=PerDevice)
+    slabs: dict = field(default_factory=dict)
+    dirs: Kept = field(default_factory=Kept)
 
 
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -183,6 +189,9 @@ class Evaluation:
         self.mean_b0s = None
         self.htable = None
         self.timers = StageTimers()
+        # the warm re-fit state (a _Signal); the tile driver's hand-off
+        self._signal = Kept()
+        self.handoff = None
         self.CONFIG = _default_config(study_path, subject, output_path,
                                       device)
         self._controller = (ThreadpoolController()
@@ -610,7 +619,6 @@ class Evaluation:
                       and not self.get_config('doDirectionalAverage')
                       and n_vox * int(self.niiDWI_img.shape[3]) * 4 <= budget)
 
-        self._staged_y_ext_dev = None
         with trace.span('stage_voxels', cached=False,
                         uploaded=False) as stage_sp:
             # warm re-fit state, the JAX facade's: a re-fit of the same
@@ -623,52 +631,35 @@ class Evaluation:
             img_fp = (float(np.sum(self.niiDWI_img.ravel(order='K')[::stride],
                                    dtype=np.float64)),
                       n_vox, hash(mask_sel.tobytes()))
-            yc = getattr(self, '_fit_y_cache', None)
-            if yc is not None and yc[0] is self.niiDWI_img \
-                    and yc[1] is self.niiMASK_img and yc[2] == img_fp:
-                self.y, slab_cache = yc[3], yc[4]
-                stage_sp.attrs['cached'] = True
-            else:
-                # a new signal: the old one's cached copies on the card, the
-                # facade's and the model's staged inputs, go before anything
-                # new is gathered or uploaded
-                yc = self._fit_y_cache = self._fit_dirs_cache = None
-                self.model._stage_cache = None
-                slab_cache = {}
-                self.y = self._gather_signal(mask, slab_cache)
-                self._fit_y_cache = (self.niiDWI_img, self.niiMASK_img,
-                                     img_fp, self.y, slab_cache)
+            sig, stage_sp.attrs['cached'] = self._signal.get(
+                (self.niiDWI_img, self.niiMASK_img), (img_fp,),
+                lambda: self._gather_signal(mask))
             # multi-process: this process fits its slab of the voxels
             # alone; the maps are gathered after the fit.  The slab view is
             # kept too, so that a re-fit hands the model the same object
-            y_full = self.y
+            self.y = y_full = sig.y
             if dist_on:
                 slab = dist.host_slab(n_vox)
-                sl = slab_cache.get((slab.start, slab.stop))
-                if sl is None:
-                    sl = slab_cache[(slab.start, slab.stop)] = y_full[slab]
-                self.y = sl
+                self.y = sig.slabs.setdefault((slab.start, slab.stop),
+                                              y_full[slab])
                 LOG(f'\n-> Distributed fit: process {dist.process_index()}/'
                     f'{dist.process_count()} takes voxels '
                     f'[{slab.start}:{slab.stop}) of {n_vox}')
+            upload = None
             if want_stage:
                 # one float32 upload a device, shared by the DTI fit and the
                 # tile driver, kept across fits
-                copies = slab_cache.setdefault('__y_ext_dev__', {})
-                if device not in copies:
-                    host = slab_cache.get('__y_ext_host__')
-                    if host is None:
-                        host = np.concatenate(
-                            [self.y.astype(np.float32, copy=False),
-                             np.zeros((1, self.y.shape[1]), np.float32)])
-                    copies[device] = _upload(host, device)
-                    stage_sp.attrs['uploaded'] = True
-                self._staged_y_ext_dev = (self.y, copies[device])
+                stage_sp.attrs['uploaded'] = device not in sig.uploads
+                upload = sig.uploads.on(device, lambda: _upload(
+                    sig.padded if sig.padded is not None else np.concatenate(
+                        [self.y.astype(np.float32, copy=False),
+                         np.zeros((1, self.y.shape[1]), np.float32)]),
+                    device))
             else:
                 # unlike the JAX facade, a fit that does not stage keeps no
                 # copy of the signal on a device: the budget bounds what
                 # the fit holds there
-                slab_cache.pop('__y_ext_dev__', None)
+                sig.uploads.clear()
         self._stage_time(stage_sp)
 
         LOG(f"\n-> Estimating principal directions "
@@ -683,24 +674,15 @@ class Evaluation:
                 # the directions depend on (y, scheme, method, doMergeB0)
                 # and the device they are fitted on: a re-fit reuses them
                 # (and the tile driver's plan, keyed on their identity)
-                dkey = (self.y, self.scheme, method,
-                        bool(self.get_config('doMergeB0')), device)
-                dc = getattr(self, '_fit_dirs_cache', None)
-                if dc is not None and dc[0] is dkey[0] \
-                        and dc[1] is dkey[1] and dc[2:5] == dkey[2:]:
-                    self.DIRs = dc[-1]
-                    sp.attrs['cached'] = True
-                else:
-                    y_dti = (self._staged_y_ext_dev[1][:-1]
-                             if self._staged_y_ext_dev is not None
-                             else self.y)
-                    with torch.no_grad():
-                        self.DIRs = _pl.principal_directions(
-                            y_dti, self.scheme, method, dkey[3],
-                            device=device)
-                    # ({device: DIRs there}, DIRs): the scatter keeps
-                    # its copy of the directions on the card here
-                    self._fit_dirs_cache = dkey + ({}, self.DIRs)
+                merge = bool(self.get_config('doMergeB0'))
+                with torch.no_grad():
+                    dirs, sp.attrs['cached'] = sig.dirs.get(
+                        (self.y, self.scheme), (method, merge, device),
+                        lambda: _Dirs(_pl.principal_directions(
+                            upload[:-1] if upload is not None else self.y,
+                            self.scheme, method, merge, device=device),
+                            PerDevice()))
+                self.DIRs = dirs.DIRs
         if not sp.attrs['cached']:
             self._stage_time(sp)
         # the staging included, as in the JAX facade
@@ -717,14 +699,14 @@ class Evaluation:
         # the 'fit' range: the benchmark attributes the kernels within it
         # to the model fit.  A single-process, meshless fit takes the tile
         # driver's rows on the card (gathered there), to scatter them there
-        self._fit_rows_on_device = (not dist_on
-                                    and self.get_config('mesh') is None)
+        self.handoff = Handoff(upload, rows_on_device=not dist_on
+                               and self.get_config('mesh') is None)
         try:
             with prof_ctx, torch.profiler.record_function('fit'), \
                     trace.span('model_fit') as sp:
                 results = self.model.fit(self)
         finally:
-            self._fit_rows_on_device = False
+            self.handoff = None
         self._stage_time(sp, 'fit')
         self.set_config('fit_time', sp.elapsed)
         LOG('   [ %s ]' % time.strftime(
@@ -740,21 +722,20 @@ class Evaluation:
             self._stage_time(sp)
             self.y = y_full
         with trace.span('scatter') as sp:
-            self.RESULTS = self._scatter_results(results, mask_sel,
-                                                 slab_cache)
+            self.RESULTS = self._scatter_results(results, mask_sel, sig)
         self._stage_time(sp)
 
-    def _gather_signal(self, mask, slab_cache):
-        """The masked voxels (N, nS) of the loaded volume: the fused native
-        gather (clip and zero pad row; the padded buffer is the device
-        staging layout, kept as ``'__y_ext_host__'``), else the NumPy
-        path."""
+    def _gather_signal(self, mask) -> _Signal:
+        """A new signal's record: the masked voxels (N, nS) of the loaded
+        volume by the fused native gather (clip and zero pad row), else the
+        NumPy path.  The old signal's copies on the devices, the facade's
+        (dropped before this runs) and the model's, go first."""
+        self.model.release_staged()
         from .ops import native as _native
         padded = _native.masked_gather_padded(self.niiDWI_img, mask)
         if padded is None:
-            return _pl.masked_voxels(self.niiDWI_img, mask)
-        slab_cache['__y_ext_host__'] = padded
-        return padded[:-1]
+            return _Signal(_pl.masked_voxels(self.niiDWI_img, mask))
+        return _Signal(padded[:-1], padded)
 
     def _load_peaks(self, peaks_filename, mask):
         """Alternative direction source: a precomputed peaks NIfTI."""
@@ -776,7 +757,7 @@ class Evaluation:
             dirs[bad] = 0.0
         return dirs
 
-    def _scatter_results(self, results, mask_sel, slab_cache):
+    def _scatter_results(self, results, mask_sel, sig):
         """Each output's rows (N, ...) as a float32 volume, zero outside the
         mask: one ``index_copy_`` of the rows at the mask's C-order flat
         index of its voxels (the order of ``mask == 1``) into a zeroed
@@ -784,25 +765,22 @@ class Evaluation:
         rows on the card and they are scattered there (the counter
         ``scatter.card``, in volumes); any other fit's rows are NumPy and
         are scattered on the CPU (``scatter.host``).  FreeWater's corrected
-        DWI is reinstated on the same device first: the b0 normalisation
-        undone and, with ``doKeepb0Intact``, the fitted signal's b0 columns
-        put back, each a float32 product, as on the host.
+        DWI is reinstated on the same device first (``_reinstate_dwi``).
 
-        A card's volumes come back each in one non-blocking copy into a
-        pinned block of torch's caching host allocator, one synchronise a
-        span, and ``RESULTS`` holds NumPy views of the blocks: the pinned
-        memory in use is that of the results alive.  A re-fit takes new
-        blocks while the caller holds the old ``RESULTS``, which it never
-        overwrites; dropped, they go back to the allocator for a later
-        fit.  The flat index and the masked mean b0 stay on the card with
-        the staged signal (``slab_cache``), the directions with
-        ``_fit_dirs_cache``, so that a re-fit uploads none of them."""
+        A card's volumes come back by ``_to_host``: ``RESULTS`` holds NumPy
+        views of pinned blocks, the pinned memory in use is that of the
+        results alive.  A re-fit takes new blocks while the caller holds the
+        old ``RESULTS``, which it never overwrites.  The flat index, the
+        masked mean b0 and the directions stay on the card in the signal's
+        record ``sig``, so that a re-fit uploads none of them.  The rows say
+        which volumes there are: NODDI's modulated maps and FreeWater's
+        corrected DWI are in them only when asked for."""
         rows = results['estimates']
         device = rows.device if isinstance(rows, torch.Tensor) \
             else torch.device('cpu')
         route = 'scatter.host' if device.type == 'cpu' else 'scatter.card'
-        flat = _kept(slab_cache, '__flat_idx__', device,
-                     lambda: np.flatnonzero(mask_sel))
+        flat = sig.flat.on(device, lambda: torch.from_numpy(
+            np.flatnonzero(mask_sel)).to(device))
         dim = tuple(self.get_config('dim'))
 
         def scatter(v, spatial):
@@ -815,38 +793,36 @@ class Evaluation:
 
         with trace.span('scatter_maps'):
             vols = {'MAPs': scatter(rows, dim),
-                    'DIRs': scatter(self._dirs_rows(device, flat.shape[0]),
-                                    dim)}
-            if self.get_config('doComputeRMSE'):
-                vols['RMSE'] = scatter(results['rmse'], dim)
-            if self.get_config('doComputeNRMSE'):
-                vols['NRMSE'] = scatter(results['nrmse'], dim)
-            if self.model.name == 'NODDI' \
-                    and self.get_config('doSaveModulatedMaps'):
-                vols['MAPs_mod'] = scatter(results['estimates_mod'], dim)
+                    'DIRs': scatter(self._dirs_rows(sig, device,
+                                                    flat.shape[0]), dim)}
+            for key, name in (('rmse', 'RMSE'), ('nrmse', 'NRMSE'),
+                              ('estimates_mod', 'MAPs_mod')):
+                if key in results:
+                    vols[name] = scatter(results[key], dim)
             out = _to_host(vols)
         n_vols = len(vols)
-        if self.model.name == 'Free-Water' and self.get_config('doSaveCorrectedDWI'):
+        if 'y_corrected' in results:
             with trace.span('reinstate_dwi'):
                 yc = self._reinstate_dwi(results['y_corrected'], mask_sel,
-                                         slab_cache, device)
+                                         sig, device)
                 out.update(_to_host({'DWI_corrected': scatter(
                     yc, self.niiDWI.shape[:3])}))
             n_vols += 1
         trace.count(route, n_vols)
         return out
 
-    def _dirs_rows(self, device, n):
+    def _dirs_rows(self, sig, device, n):
         """The directions (n, 3) float32 on ``device`` (zeros without
-        any); those of ``_fit_dirs_cache`` are kept there per device."""
+        any); the DTI fit's are kept there in ``sig``."""
         if self.DIRs is None:
             return torch.zeros((n, 3), dtype=torch.float32, device=device)
-        dc = getattr(self, '_fit_dirs_cache', None)
-        kept = dc[5] if dc is not None and dc[-1] is self.DIRs else {}
-        return _kept(kept, 'DIRs', device,
-                     lambda: np.asarray(self.DIRs, np.float32))
+        kept = sig.dirs.value
+        copies = kept.copies if kept is not None and kept.DIRs is self.DIRs \
+            else PerDevice()
+        return copies.on(device, lambda: torch.from_numpy(
+            np.asarray(self.DIRs, np.float32)).to(device))
 
-    def _reinstate_dwi(self, y_corrected, mask_sel, slab_cache, device):
+    def _reinstate_dwi(self, y_corrected, mask_sel, sig, device):
         """FreeWater's corrected signal (N, nS) on ``device``, the b0
         normalisation undone (times the masked mean b0) and, with
         ``doKeepb0Intact``, the fitted signal's b0 columns (its column 0
@@ -859,8 +835,8 @@ class Evaluation:
             and self.mean_b0s is not None
         keep_b0 = bool(self.get_config('doKeepb0Intact')) and has_b0
         if normalized:
-            mean_b0 = _kept(slab_cache, '__mean_b0__', device,
-                            lambda: self.mean_b0s[mask_sel])[:, None]
+            mean_b0 = sig.mean_b0.on(device, lambda: torch.from_numpy(
+                self.mean_b0s[mask_sel]).to(device))[:, None]
             yc = yc * mean_b0
         elif keep_b0:
             yc = yc.clone()
@@ -868,9 +844,8 @@ class Evaluation:
             cols = torch.as_tensor(
                 [0] if self.get_config('doMergeB0') else self.scheme.b0_idx,
                 dtype=torch.int64, device=device)
-            staged = self._staged_y_ext_dev
-            y = staged[1][:-1] if staged is not None \
-                and staged[1].device == device \
+            staged = sig.uploads.get(device)
+            y = staged[:-1] if staged is not None \
                 else torch.from_numpy(np.asarray(self.y)).to(device)
             b0 = y.index_select(1, cols)
             if normalized:

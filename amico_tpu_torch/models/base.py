@@ -3,32 +3,24 @@
 
 The host helpers, the checkpoint fingerprint and the NODDI schedule
 constant are copied from the JAX package, whose module imports jax.
-``_run_tiled_fit`` replaces the JAX driver.  Within ``max_device_bytes`` it
-uploads the padded (N+1, nS) float32 signal once and gathers each chunk on
-the device from the tile plan (``index_select``); beyond it, it streams
-host-tiled chunks from pinned memory with a bounded number in flight.  The
-chunking is the same in both modes, so are the maps.  Under a device mesh
-(the ``mesh`` config) whole chunks go to the mesh's devices round robin,
-with the same chunking and maps.  As in the JAX driver, ``tile_size='auto'``
-sizes the tiles of the tile kernels with ``engine.auto_tile_size``, on the
-H100 ladder and per-tile overhead of the model's kernel.  In gathered mode
-on one device each chunk's outputs are written in voxel order on the device
-as soon as it is computed, and copied to the host once at the end (on a
-card, unless the facade's fit takes them there); the
-streamed, mesh and checkpointed fits copy each chunk's outputs to the host
-as soon as it is computed and untile them there.  As in the JAX driver, a
-re-fit of the same objects reuses the LUT quantization and tile plans
-(``_plan_cache``), the staged inputs on each device (``_stage_cache``,
-gathered mode only) and the model's device constants (``_prep_cache``).
-The tile driver's phases are spans of ``trace`` (plan, with quantize,
-tile_plan and stage_inputs; dispatch, with a chunk each; device_wait; pull;
-untile on the host), from which ``_last_fit_timers`` is built.
+``_run_tiled_fit`` replaces the JAX driver: within ``max_device_bytes`` it
+gathers each chunk from the signal staged on the device, beyond it it
+streams host-tiled chunks from pinned memory, with the same chunks and maps
+in both modes and over a ``mesh``.  As in the JAX driver,
+``tile_size='auto'`` is ``engine.auto_tile_size``'s on the model's kernel
+ladder, and a re-fit of the same objects reuses the LUT quantization and
+tile plans (``_plans``), the staged inputs (``_staged``) and the model's
+device constants (``_prep``), each a ``warm.Kept``; the facade hands the
+driver its upload of the signal in a ``Handoff``.  The driver's phases are
+spans of ``trace``, from which ``_last_fit_timers`` is built.
 """
 from __future__ import annotations
 
 import hashlib
 import os
 from abc import ABC, abstractmethod
+from collections import namedtuple
+from functools import cached_property
 from os.path import join as pjoin
 
 import numpy as np
@@ -37,6 +29,7 @@ import torch
 from .. import lut as _lut
 from .. import trace
 from ..utils.logging import ERROR
+from ..warm import Kept, PerDevice
 from .engine import (auto_tile_size, build_tile_plan, iter_tile_chunks,
                      tile_voxels, untile_voxels)
 
@@ -94,7 +87,7 @@ DEFAULT_VOXELS_PER_CHUNK = 65536
 DEFAULT_MAX_DEVICE_BYTES = 4 << 30
 
 
-_SECOND_STREAMS: dict = {}
+_SECOND_STREAMS = PerDevice()
 
 
 def _concrete(device) -> torch.device:
@@ -127,10 +120,26 @@ def _to_host(tensors: dict) -> dict:
     return {k: t.numpy() for k, t in out.items()}
 
 
-def _same_plan(a, b) -> bool:
-    """Whether two tile plans put the same voxels in the same tiles."""
-    return a is b or (np.array_equal(a.perm, b.perm)
-                      and np.array_equal(a.tile_dirs, b.tile_dirs))
+# the facade's ``evaluation.handoff`` to the tile driver during a fit: its
+# upload (N+1, nS) of ``evaluation.y``, if any, and if the rows stay there
+Handoff = namedtuple('Handoff', 'y_ext rows_on_device', defaults=(None, False))
+
+
+class _Plans:
+    """The LUT index of each voxel's direction, the tile plans by width and
+    the direction buckets' sizes (for 'auto', made on the first ask)."""
+
+    def __init__(self, lut_idx: np.ndarray):
+        self.lut_idx, self.by_width = lut_idx, {}
+
+    @cached_property
+    def counts(self) -> np.ndarray:
+        return np.unique(self.lut_idx, return_counts=True)[1]
+
+
+# a gathered fit's inputs by device: the plan's (permutation, tile directions,
+# masks), and the driver's own padded signal where the facade handed none
+_Staged = namedtuple('_Staged', 'plan signal')
 
 
 def _chunk_streams(device) -> list:
@@ -150,9 +159,7 @@ def _chunk_streams(device) -> list:
     index = torch.cuda.current_device() if device.index is None \
         else device.index
     current = torch.cuda.current_stream(index)
-    second = _SECOND_STREAMS.get(index)
-    if second is None:
-        second = _SECOND_STREAMS[index] = torch.cuda.Stream(index)
+    second = _SECOND_STREAMS.on(index, lambda: torch.cuda.Stream(index))
     second.wait_stream(current)
     return [current, second]
 
@@ -287,20 +294,21 @@ class BaseModel(ABC):
                              f'got {backend!r}')
         return backend
 
+    # the warm re-fit state: LUT quantization and tile plans (_Plans), staged
+    # inputs (_Staged; SANDI's chunks), device constants (a PerDevice)
+    _plans, _staged, _prep = Kept.slot(), Kept.slot(), Kept.slot()
+
+    def release_staged(self):
+        """Free what the model's driver keeps staged on its devices."""
+        self._staged.drop()
+
     def _constants(self, key: tuple, device: torch.device, build):
-        """The fit's device constants on ``device``, kept across fits: the
-        JAX package's ``_prep_cache`` with the device added.  ``key``'s
-        first entry is the KERNELS array they come from, compared by
-        identity (an id alone can be recycled), the rest by value; one set
-        is kept per device, so that each card of a mesh keeps its own.
-        ``build()`` runs only on a miss."""
-        pc = getattr(self, '_prep_cache', None)
-        if pc is None or pc[0][0] is not key[0] or pc[0][1:] != key[1:]:
-            pc = self._prep_cache = (key, {})
-        consts = pc[1].get(device)
-        if consts is None:
-            consts = pc[1][device] = build()
-        return consts
+        """The fit's device constants on ``device``, kept across fits as
+        the JAX package's ``_prep_cache``, one set a device (a mesh's cards
+        each keep theirs): ``key[0]`` is the KERNELS array they come from,
+        compared by identity, the rest by value; ``build()`` on a miss."""
+        consts, _ = self._prep.get(key[:1], key[1:], PerDevice)
+        return consts.on(device, build)
 
     def _ckpt_fingerprint(self, plan, tile_size: int, y: np.ndarray,
                           y_sum: float | None = None) -> np.ndarray:
@@ -327,23 +335,19 @@ class BaseModel(ABC):
                          params_h, np.float64(y_sum).view(np.int64)],
                         np.int64)
 
-    def _tile_size(self, evaluation, pc, backend: str, devices) -> int:
+    def _tile_size(self, evaluation, plans, backend: str, devices) -> int:
         """The fit's tile width: the ``tile_size`` config when it is set;
         else, on the tile kernels (``backend`` 'pallas') on CUDA cards,
         ``engine.auto_tile_size`` over the direction buckets' sizes on the
-        model's kernel ladder (the counts kept in the plan cache ``pc``, as
-        the JAX driver keeps them); else DEFAULT_TILE_SIZE."""
+        model's kernel ladder (the counts kept in ``plans``, as the JAX
+        driver keeps them); else DEFAULT_TILE_SIZE."""
         cfg = evaluation.get_config('tile_size')
         if cfg not in (None, 'auto'):
             return int(cfg)
         if backend != 'pallas' or self._tile_widths is None \
                 or any(d.type != 'cuda' for d in devices):
             return DEFAULT_TILE_SIZE
-        counts = pc[2].get('_counts')
-        if counts is None:
-            counts = pc[2]['_counts'] = np.unique(pc[1],
-                                                  return_counts=True)[1]
-        return auto_tile_size(counts, self._tile_widths,
+        return auto_tile_size(plans.counts, self._tile_widths,
                               self._tile_step_overhead)
 
     # ------------------------------------------------- tiled fit driver
@@ -364,9 +368,9 @@ class BaseModel(ABC):
         device, on the chunk's stream (``index_copy_`` by the plan's
         permutation; the padding slots land in row N, dropped), and each
         buffer is copied to the host once after the last chunk; on a CUDA
-        card, an ``evaluation`` whose ``_fit_rows_on_device`` is true (the
-        facade's single-process, meshless fit) gets the (N, ...) rows on
-        the card instead, as tensors.  Otherwise
+        card, an ``evaluation`` whose ``handoff`` asks for it (the facade's
+        single-process, meshless fit) gets the (N, ...) rows on the card
+        instead, as tensors.  Otherwise
         each chunk's outputs are copied into a tiled host buffer (pinned
         for a CUDA device) on the chunk's stream as soon as it is computed,
         and untiled on the host at the end.  Both give the same maps, bit
@@ -397,20 +401,31 @@ class BaseModel(ABC):
             devices = [_concrete(d) for d in mesh.devices]
             y = np.asarray(evaluation.y)
             with trace.span('quantize', cached=True) as sp:
-                pc = self._lut_quantization(evaluation, sp)
+                # the LUT index of each voxel's direction and the tile plans
+                # by width depend on DIRs alone: a fit of the same DIRs and
+                # htable objects with the same strided content sum of DIRs
+                # (an in-place edit misses) reuses them
+                DIRs = np.asarray(evaluation.DIRs, np.float64)
+                dstride = max(1, DIRs.size // 65536)
+                dirs_fp = (DIRs.shape, float(np.sum(
+                    DIRs.ravel()[::dstride], dtype=np.float64)))
+                plans, sp.attrs['cached'] = self._plans.get(
+                    (evaluation.DIRs, evaluation.htable), (dirs_fp,),
+                    lambda: _Plans(_lut.dir_to_lut_idx(DIRs,
+                                                       evaluation.htable)))
             with trace.span('tile_plan', cached=True) as sp:
                 tile_size = self._tile_size(
-                    evaluation, pc, self._solver_backend(devices[0]),
+                    evaluation, plans, self._solver_backend(devices[0]),
                     devices)
                 vpc = evaluation.get_config('voxels_per_chunk')
                 vpc = DEFAULT_VOXELS_PER_CHUNK if vpc in (None, 'auto') \
                     else int(vpc)
                 chunk_tiles = max(1, vpc // tile_size)
-                plan = pc[2].get(tile_size)
+                plan = plans.by_width.get(tile_size)
                 if plan is None:
                     sp.attrs['cached'] = False
-                    plan = pc[2][tile_size] = build_tile_plan(pc[1],
-                                                              tile_size)
+                    plan = plans.by_width[tile_size] = build_tile_plan(
+                        plans.lut_idx, tile_size)
 
             # the JAX driver's rule on the float32 bytes that would be
             # staged (on each device of a mesh): within the budget the flat
@@ -462,13 +477,14 @@ class BaseModel(ABC):
                             for k in out_tiles:
                                 out_tiles[k][:done_until] = \
                                     ck[k][:done_until]
+            handoff = getattr(evaluation, 'handoff', None) or Handoff()
             with trace.span('stage_inputs', cached=True) as sp:
-                inputs, shared, Y_host = self._staged_inputs(
-                    evaluation, y, y_sum, plan, tile_size, chunk_tiles,
-                    device_gather, devices, sp)
+                inputs, Y_host = self._staged_inputs(
+                    evaluation, handoff.y_ext, y, y_sum, plan, tile_size,
+                    chunk_tiles, device_gather, devices, sp)
         timers = {'setup_s': plan_sp.elapsed,
                   'streamed': int(not device_gather),
-                  'staged_shared': shared, 'tile_size': tile_size,
+                  'staged_shared': sp.attrs['shared'], 'tile_size': tile_size,
                   'chunk_tiles': chunk_tiles}
 
         def pull(done):
@@ -554,8 +570,7 @@ class BaseModel(ABC):
                 out = {k: v[:N] for k, v in out_dev.items()}
                 # the facade's own fit asks for the rows on the card, where
                 # it scatters them into volumes
-                if devices[0].type != 'cuda' or not getattr(
-                        evaluation, '_fit_rows_on_device', False):
+                if devices[0].type != 'cuda' or not handoff.rows_on_device:
                     out = _to_host(out)
                 del out_dev
         timers['pull_s'] = sp.elapsed
@@ -572,33 +587,13 @@ class BaseModel(ABC):
         self._last_fit_devices = first_devices
         return out
 
-    def _lut_quantization(self, evaluation, sp):
-        """The LUT index of each voxel's direction and the tile plans by
-        width, kept across fits: they depend on DIRs alone, so a fit of the
-        same DIRs and htable objects (identity) with the same strided
-        content sum of DIRs (an in-place edit misses) reuses them; a miss
-        sets ``cached`` False on the span ``sp``."""
-        DIRs = np.asarray(evaluation.DIRs, np.float64)
-        dstride = max(1, DIRs.size // 65536)
-        dirs_fp = (DIRs.shape,
-                   float(np.sum(DIRs.ravel()[::dstride], dtype=np.float64)))
-        pkey = (evaluation.DIRs, dirs_fp, evaluation.htable)
-        pc = getattr(self, '_plan_cache', None)
-        if pc is None or pc[0][0] is not pkey[0] or pc[0][1] != pkey[1] \
-                or pc[0][2] is not pkey[2]:
-            sp.attrs['cached'] = False
-            pc = self._plan_cache = (
-                pkey, _lut.dir_to_lut_idx(DIRs, evaluation.htable), {})
-        return pc
-
-    def _staged_inputs(self, evaluation, y, y_sum, plan, tile_size,
+    def _staged_inputs(self, evaluation, facade, y, y_sum, plan, tile_size,
                        chunk_tiles, device_gather, devices, sp):
-        """Each device's inputs of the chunks: (the staged signal, the
-        plan's permutation, the tile directions, the tile masks), the
-        signal and permutation None when streamed; whether the facade's
-        upload is the staged signal; and the host-tiled signal when
-        streamed (else None).  A miss of the staged inputs' cache sets
-        ``cached`` False on the span ``sp``, and ``shared`` on it.
+        """Each device's inputs of the chunks (the staged signal, the plan's
+        permutation, tile directions and masks; the signal and permutation
+        None when streamed) and the host-tiled signal when streamed (else
+        None).  On the span ``sp``: ``cached``, and ``shared``, whether the
+        facade's upload ``facade`` is the staged signal.
 
         Kept across fits in gathered mode only.  The JAX driver's key, with
         the mesh's devices and whether a mesh was given in place of its
@@ -609,49 +604,35 @@ class BaseModel(ABC):
         miss or a streamed fit drops the old inputs before anything new is
         placed."""
         nS = y.shape[1]
-        stage_key = (evaluation.y, (y.shape, y_sum), tile_size, chunk_tiles,
-                     device_gather, tuple(devices),
-                     evaluation.get_config('mesh') is None)
-        staged = getattr(self, '_stage_cache', None)
-        if staged is not None and staged[0][0] is stage_key[0] \
-                and staged[0][1:] == stage_key[1:] \
-                and _same_plan(staged[2], plan):
-            inputs = staged[1]
-        else:
-            sp.attrs['cached'] = False
-            self._stage_cache = staged = None
-            inputs = {}
-            if device_gather:
-                self._stage_cache = (stage_key, inputs, plan)
-        shared, Y_host = 0, None
-        if device_gather:
-            # the facade's upload (shared with the DTI fit) on its device
-            facade = {}
-            pre = getattr(evaluation, '_staged_y_ext_dev', None)
-            if pre is not None and pre[0] is y \
-                    and tuple(pre[1].shape) == (y.shape[0] + 1, nS):
-                facade[pre[1].device] = pre[1]
-            host = None
-            for d in devices:
-                if d in inputs:
-                    continue
-                y_ext = facade.get(d)
-                if y_ext is None:
-                    if host is None:
-                        host = torch.from_numpy(np.concatenate(
-                            [y.astype(np.float32, copy=False),
-                             np.zeros((1, nS), np.float32)]))
-                    y_ext = host.to(d)
-                inputs[d] = (
-                    y_ext, torch.from_numpy(plan.perm.astype(np.int64)).to(d),
-                    torch.from_numpy(plan.tile_dirs.astype(np.int64)).to(d),
+
+        def tiles(d):
+            return (torch.from_numpy(plan.tile_dirs.astype(np.int64)).to(d),
                     torch.from_numpy(plan.valid).to(d))
-            shared = int(any(inputs[d][0] is facade.get(d) for d in devices))
-        else:
-            Y_host = tile_voxels(plan, y.astype(np.float32, copy=False))
-            for d in devices:
-                inputs[d] = (None, None,
-                             torch.from_numpy(plan.tile_dirs.astype(np.int64))
-                             .to(d), torch.from_numpy(plan.valid).to(d))
-        sp.attrs['shared'] = shared
-        return inputs, shared, Y_host
+        if not device_gather:
+            self._staged.drop()
+            sp.attrs.update(cached=False, shared=0)
+            return ({d: (None, None) + tiles(d) for d in devices},
+                    tile_voxels(plan, y.astype(np.float32, copy=False)))
+        staged, sp.attrs['cached'] = self._staged.get(
+            (evaluation.y,), ((y.shape, y_sum), tile_size, chunk_tiles,
+                              tuple(devices),
+                              evaluation.get_config('mesh') is None, plan),
+            lambda: _Staged({}, {}))
+        inputs, host = {}, None
+        for d in devices:
+            if d not in staged.plan:
+                staged.plan[d] = (
+                    torch.from_numpy(plan.perm.astype(np.int64)).to(d),
+                ) + tiles(d)
+            y_ext = facade if facade is not None and facade.device == d \
+                else staged.signal.get(d)
+            if y_ext is None:
+                if host is None:
+                    host = torch.from_numpy(np.concatenate(
+                        [y.astype(np.float32, copy=False),
+                         np.zeros((1, nS), np.float32)]))
+                y_ext = staged.signal[d] = host.to(d)
+            inputs[d] = (y_ext,) + staged.plan[d]
+        sp.attrs['shared'] = int(facade is not None
+                                 and facade.device in devices)
+        return inputs, None

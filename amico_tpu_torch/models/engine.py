@@ -20,9 +20,9 @@ from dataclasses import dataclass
 import numpy as np
 
 
-@dataclass
+@dataclass(eq=False)
 class TilePlan:
-    """Deterministic voxel->tile assignment for one fit."""
+    """Deterministic voxel->tile assignment for one fit; equal by tiles."""
     perm: np.ndarray        # (n_tiles * tile_size,) int32 indices into the
                             # voxel array; padding entries == n_voxels
     tile_dirs: np.ndarray   # (n_tiles,) int32 LUT direction per tile
@@ -33,6 +33,10 @@ class TilePlan:
     @property
     def n_tiles(self) -> int:
         return self.tile_dirs.shape[0]
+
+    def __eq__(self, b):
+        return self is b or (np.array_equal(self.perm, b.perm)
+                             and np.array_equal(self.tile_dirs, b.tile_dirs))
 
 
 def build_tile_plan(lut_idx: np.ndarray, tile_size: int = 128) -> TilePlan:

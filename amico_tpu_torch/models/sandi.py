@@ -200,14 +200,8 @@ class SANDI(BaseModel):
         chunk = sandi_chunk(N, vpc)
         # the signal's chunks stay on the card across fits of the same
         # evaluation.y (array identity)
-        stage_key = (evaluation.y, chunk, device)
-        staged = getattr(self, '_stage_cache', None)
-        if staged is not None and staged[0][0] is stage_key[0] \
-                and staged[0][1:] == stage_key[1:]:
-            chunks_dev = staged[1]
-        else:
-            chunks_dev = {}
-            self._stage_cache = (stage_key, chunks_dev)
+        chunks_dev, _ = self._staged.get((evaluation.y,), (chunk, device),
+                                         dict)
         timers = {}
         pending = []
         with torch.no_grad(), trace.span('dispatch') as sp:

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+from collections import namedtuple
 from os.path import join as pjoin
 
 import numpy as np
@@ -27,6 +28,9 @@ from .utils.logging import LOG, WARNING
 
 class SubjectSweep:
     """Run one model over many subjects of a study."""
+
+    # a model and its resampled kernels, kept across subjects of one signature
+    _Warm = namedtuple('_Warm', 'signature model kernels htable')
 
     def __init__(self, study_path: str, subjects: list[str], model_name: str,
                  dwi_filename='DWI.nii', scheme_filename='DWI.scheme',
@@ -52,8 +56,8 @@ class SubjectSweep:
         # maps (a prefetched load counts only as long as the sweep waited):
         # its 'subject' span
         self.seconds: dict[str, float] = {}
-        # cross-subject warm state: (signature, (model, KERNELS, htable)),
-        # and the subjects of this sweep that reused it
+        # cross-subject warm state (a _Warm), and the subjects of this sweep
+        # that reused it
         self._warm = None
         self.warm_reused: list[str] = []
 
@@ -163,10 +167,10 @@ class SubjectSweep:
                 for fut in pending.values():
                     fut.cancel()
                 ex.shutdown(wait=True)
-            # the kept model outlives the sweep: its staged inputs are the
-            # last subject's signal on the card, of no use to another one
+            # the kept model outlives the sweep: what it staged is the last
+            # subject's, of no use to another one
             if self._warm is not None:
-                self._warm[1][0]._stage_cache = None
+                self._warm.model.release_staged()
         return self.results
 
     def _run_subjects(self, resume, checkpoint, ex, pending, reqs,
@@ -200,17 +204,16 @@ class SubjectSweep:
                     # kernel-prep caches survive) and the resampled
                     # KERNELS/htable -- per-subject LUT resampling is the
                     # dominant sweep overhead once the fit itself is sub-second
-                    sig = self._warm_signature(ev)
-                    if self._warm is not None and self._warm[0] == sig:
-                        model, kernels, htable = self._warm[1]
-                        model.scheme = ev.scheme
-                        ev.model = model
-                        ev.KERNELS = kernels
-                        ev.htable = htable
+                    sig, warm = self._warm_signature(ev), self._warm
+                    if warm is not None and warm.signature == sig:
+                        warm.model.scheme = ev.scheme
+                        ev.model, ev.KERNELS, ev.htable = (
+                            warm.model, warm.kernels, warm.htable)
                         self.warm_reused.append(subject)
                     else:
                         ev.load_kernels()
-                        self._warm = (sig, (ev.model, ev.KERNELS, ev.htable))
+                        self._warm = self._Warm(sig, ev.model, ev.KERNELS,
+                                                ev.htable)
                     ev.fit()
                     ev.save_results()
                 self.results[subject] = self._result_dir(subject)

@@ -114,7 +114,7 @@ def sweep(model, widths, reps, tmp, chunks=None):
     if chunks:
         from amico_tpu_torch.models.engine import build_tile_plan
         ev.fit()
-        lut_idx = ev.model._plan_cache[1]
+        lut_idx = ev.model._plans.value.lut_idx
     mod_name, attr = KERNEL[model]
     mod = importlib.import_module(mod_name)
     kernel = getattr(mod, attr)
@@ -141,7 +141,7 @@ def sweep(model, widths, reps, tmp, chunks=None):
                 ev.fit()
                 warm.append(time.time() - t0)
                 dev.append(ev.model._last_fit_timers['device_s'])
-            plan = ev.model._plan_cache[2][M]
+            plan = ev.model._plans.value.by_width[M]
             maps[M] = ev.RESULTS['MAPs'][mask].copy()
             rows[M] = {'n_tiles': int(plan.n_tiles),
                        'slots': int(plan.n_tiles * M),
@@ -165,9 +165,7 @@ def sweep(model, widths, reps, tmp, chunks=None):
     fit = overhead_fit([rows[M]['slots'] for M in widths],
                        [rows[M]['n_tiles'] for M in widths],
                        [rows[M]['kernel_ms_median'] for M in widths])
-    counts = ev.model._plan_cache[2].get('_counts')
-    if counts is None:
-        _, counts = np.unique(ev.model._plan_cache[1], return_counts=True)
+    counts = ev.model._plans.value.counts
     c = max(fit['overhead_slots'], 0.0)
     out = {'model': model, 'chunks': chunks,
            'widths': {str(M): rows[M] for M in widths}, 'fit': fit,

@@ -552,13 +552,12 @@ def warm_state(ev):
     none)."""
     import torch
     dev = torch.device('cuda', torch.cuda.current_device())
-    yc, dc = ev._fit_y_cache, getattr(ev, '_fit_dirs_cache', None)
-    m = ev.model
-    return {'y': yc[3], 'upload': yc[4].get('__y_ext_dev__', {}).get(dev),
-            'dirs': dc[-1] if dc else None,
-            'plan': getattr(m, '_plan_cache', None),
-            'stage': getattr(m, '_stage_cache', None),
-            'prep': m._prep_cache[1].get(dev)}
+    sig, m = ev._signal.value, ev.model
+    dirs = sig.dirs.value
+    return {'y': sig.y, 'upload': sig.uploads.get(dev),
+            'dirs': dirs.DIRs if dirs is not None else None,
+            'plan': m._plans.value, 'stage': m._staged.value,
+            'prep': m._prep.value.get(dev)}
 
 
 def warm_refit(ev, counter, launches_first, what):
@@ -1238,7 +1237,8 @@ def phase_sandi(study):
     log(f'SANDI main path: {time.time() - t0:.2f} s end to end')
     # one chunk's fit under the profiler (which slows the host tenfold)
     from types import SimpleNamespace
-    chunk = ev.model._stage_cache[0][1]
+    from amico_tpu_torch.models.sandi import sandi_chunk
+    chunk = sandi_chunk(ev.y.shape[0], ev.get_config('voxels_per_chunk'))
     one = SimpleNamespace(y=ev.y[:chunk], KERNELS=ev.KERNELS,
                           get_config={'device': 'cuda',
                                       'voxels_per_chunk': chunk}.get)
@@ -1574,6 +1574,8 @@ def fit_pair(ev, budget, what):
     driver."""
     import gc
     import torch
+    from amico_tpu_torch.models.base import Handoff
+    dev = torch.device('cuda', torch.cuda.current_device())
     out, peaks = [], []
     for b in (None, budget):
         gc.collect()
@@ -1585,7 +1587,10 @@ def fit_pair(ev, budget, what):
         fit_s = time.time() - t0
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        # the tile driver alone, handed the facade's upload as in its fit
+        ev.handoff = Handoff(ev._signal.value.uploads.get(dev))
         ev.model.fit(ev)
+        ev.handoff = None
         torch.cuda.synchronize()
         driver_peak = torch.cuda.max_memory_allocated()
         t = ev.model._last_fit_timers
@@ -1596,8 +1601,8 @@ def fit_pair(ev, budget, what):
         check(t['streamed'] == int(b is not None),
               f'{what}: the staging mode did not follow the budget')
         if b is not None:
-            check('__y_ext_dev__' not in ev._fit_y_cache[4]
-                  and ev.model._stage_cache is None,
+            check(not ev._signal.value.uploads
+                  and ev.model._staged.value is None,
                   f'{what}: the streamed fit kept the signal on the card')
         out.append(ev.RESULTS['MAPs'].copy())
         peaks.append(peak)
@@ -1666,7 +1671,8 @@ def phase_dti_methods(ev, lut_true):
     import torch
     from amico_tpu_torch import lut as _lut
     from amico_tpu_torch.pipeline import principal_directions
-    y_dev = ev._staged_y_ext_dev[1][:-1]
+    y_dev = ev._signal.value.uploads[
+        torch.device('cuda', torch.cuda.current_device())][:-1]
     sel = np.random.RandomState(0).choice(y_dev.shape[0],
                                           min(4096, y_dev.shape[0]),
                                           replace=False)

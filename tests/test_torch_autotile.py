@@ -17,6 +17,7 @@ import amico_tpu_torch
 from amico_tpu.models.engine import auto_tile_size as jax_auto_tile_size
 from amico_tpu_torch.models import (NODDI, CylinderZeppelinBall, FreeWater,
                                     base)
+from amico_tpu_torch.models.base import _Plans
 from amico_tpu_torch.models.engine import auto_tile_size
 from amico_tpu_torch.ops.cuda_qp import qp_geometry
 from amico_tpu_torch.parallel import make_mesh
@@ -86,7 +87,7 @@ class Ctx:
 
 
 def plan_cache(model, lut_idx):
-    return (None, np.asarray(lut_idx), {})
+    return _Plans(np.asarray(lut_idx))
 
 
 @pytest.mark.parametrize('cls', [NODDI, FreeWater, CylinderZeppelinBall])
@@ -106,12 +107,12 @@ def test_tile_size_resolution(cls):
         assert m._tile_size(ctx, pc, 'xla', [CUDA]) == 128
         assert m._tile_size(ctx, pc, 'pallas', [CUDA, torch.device('cpu')]) \
             == 128
-        assert '_counts' not in pc[2]
+        assert 'counts' not in vars(pc)
         assert m._tile_size(ctx, pc, 'pallas', [CUDA, CUDA]) == want
-        assert np.array_equal(pc[2]['_counts'], counts)
-        pc[2]['_counts'] = np.array([10 ** 6])     # read from the cache
+        assert np.array_equal(pc.counts, counts)
+        pc.counts = np.array([10 ** 6])     # read from the cache
         assert m._tile_size(ctx, pc, 'pallas', [CUDA]) == auto_tile_size(
-            pc[2]['_counts'], cls._tile_widths, cls._tile_step_overhead)
+            pc.counts, cls._tile_widths, cls._tile_step_overhead)
     for dev, backend in ((torch.device('cpu'), 'pallas'), (CUDA, 'pallas'),
                          (CUDA, 'xla')):
         ctx = Ctx(None, None, None, None, tile_size=48)
@@ -230,7 +231,7 @@ def test_device_untile_equals_host_untile(problems, name, mode, tmp_path,
     assert len(calls) == len(ref)
     if mode == 'crash':
         assert m._last_fit_timers['n_chunks'] == \
-            -(-m._plan_cache[2][32].n_tiles // 4) - 2
+            -(-m._plans.value.by_width[32].n_tiles // 4) - 2
     assert set(got) == set(ref)
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k])
@@ -336,7 +337,7 @@ def test_facade_width_against_128(facade_studies, name, width):
             err = freewater_oracle_audit(ev, n=400, seed=0)
             assert np.median(err) < 1e-4 and np.percentile(err, 95) < 1e-3 \
                 and err.max() < 5e-3
-    plans = ev.model._plan_cache[2]
+    plans = ev.model._plans.value.by_width
     assert plans[64 if width == 64 else 128].n_tiles > 6   # several a bucket
     e = np.abs(maps[width] - maps[128])
     assert np.median(e) < 1e-5 and np.percentile(e, 95) < \

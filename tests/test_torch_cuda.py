@@ -567,7 +567,7 @@ def test_second_stream_waits_for_the_constants(freewater, monkeypatch):
             return {'device': 'cuda', 'voxels_per_chunk': 1024}.get(k)
 
     monkeypatch.setattr(model, 'prepare', late)
-    model._prep_cache = None            # built in this fit, not an earlier one
+    model._prep.drop()                  # built in this fit, not an earlier one
     two = model.fit(Ctx())
     assert model._last_fit_timers['n_chunks'] >= 2
     monkeypatch.setattr(base, '_chunk_streams', lambda device: [None])

@@ -218,16 +218,16 @@ def _worker_pipeline(rank, nproc, workdir):
     # a second fit on each rank reuses this rank's slab view, directions
     # and the model's caches, and gathers the same maps
     slab = dist.host_slab(n_vox)
-    kept = (ev._fit_y_cache[4][(slab.start, slab.stop)],
-            ev._fit_dirs_cache[-1], ev.model._plan_cache,
-            ev.model._stage_cache, ev.model._prep_cache[1][CPU])
+    def warm():
+        sig, m = ev._signal.value, ev.model
+        return (sig.slabs[(slab.start, slab.stop)], sig.dirs.value.DIRs,
+                m._plans.value, m._staged.value, m._prep.value[CPU])
+    kept = warm()
     maps = ev.RESULTS['MAPs'].copy()
     ev.fit()
-    again = (ev._fit_y_cache[4][(slab.start, slab.stop)],
-             ev._fit_dirs_cache[-1], ev.model._plan_cache,
-             ev.model._stage_cache, ev.model._prep_cache[1][CPU])
+    again = warm()
     assert all(a is b for a, b in zip(kept, again)), (rank, kept, again)
-    assert ev._fit_dirs_cache[0] is kept[0]
+    assert ev._signal.value.dirs.objs[0] is kept[0]
     assert np.array_equal(ev.RESULTS['MAPs'], maps)
     ev.save_results()
     print('timers: ' + json.dumps(ev._last_fit_facade_timers), flush=True)

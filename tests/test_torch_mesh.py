@@ -243,7 +243,7 @@ def test_facade_mesh_config_pickle(tmp_path):
         ev.save_results()
         out[key] = {k: ev.RESULTS[k] for k in ('MAPs', 'DIRs',
                                                 'DWI_corrected')}
-    assert ev._staged_y_ext_dev is None      # no shared staging on a mesh
+    assert not ev._signal.value.uploads      # no shared staging on a mesh
     assert ev.model._last_fit_devices == list(mesh.devices)
     for k in out['one']:
         np.testing.assert_array_equal(out['mesh'][k], out['one'][k])

@@ -133,9 +133,9 @@ def test_sandi_chunks_caches_and_timers(sandi):
     model, kernels, y = sandi
     ctx = Ctx(y, kernels, device='cpu')
     first = model.fit(ctx)['estimates']
-    consts, staged = model._prep_cache[1], model._stage_cache[1]
+    consts, staged = model._prep.value, model._staged.value
     second = model.fit(ctx)['estimates']
-    assert model._prep_cache[1] is consts and model._stage_cache[1] is staged
+    assert model._prep.value is consts and model._staged.value is staged
     assert np.array_equal(first, second)
     assert set(model._last_fit_timers) == {'n_chunks', 'dispatch_s',
                                            'device_s', 'pull_s'}

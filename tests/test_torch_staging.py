@@ -215,7 +215,7 @@ def test_facade_staging_rule(study, tmp_path):
     for budget in (None, 1024):
         ev.set_config('max_device_bytes', budget)
         ev.fit()
-        staged = ev._staged_y_ext_dev
+        staged = ev._signal.value.uploads.get(torch.device('cpu'))
         assert (staged is None) == (budget is not None)
         assert ev.model._last_fit_timers['streamed'] == int(budget is not None)
         # the driver gathers from the facade's upload, not a second one

@@ -177,7 +177,7 @@ def test_last_fit_timers_come_from_the_spans(study):
     assert te['setup_s'] == dur['plan']
     assert te['dispatch_s'] == dur['dispatch']
     assert te['device_s'] == dur['device_wait']
-    n_tiles = ev.model._plan_cache[2][32].n_tiles
+    n_tiles = ev.model._plans.value.by_width[32].n_tiles
     assert te['untile_s'] == 0.0 and te['n_chunks'] == -(-n_tiles // 64) > 1
     assert dur['reinstate_dwi'] + dur['scatter_maps'] <= dur['scatter']
     by = {r['name']: r['attrs'] for r in last}
@@ -223,7 +223,7 @@ def test_k2_rounds_counted_in_a_fit(study, monkeypatch):
     ev.fit()
     np.testing.assert_array_equal(ev.RESULTS['MAPs'], maps)
     counts = trace.spans(name='fit')[-1]['counts']
-    n_tiles = ev.model._plan_cache[2][32].n_tiles
+    n_tiles = ev.model._plans.value.by_width[32].n_tiles
     assert len(launched) == ev.model._last_fit_timers['n_chunks']
     assert counts['k2.tiles'] == sum(c[0] for c in launched) == n_tiles
     assert counts['k2.rounds'] == sum(c[1] for c in launched) > 0

@@ -5,16 +5,19 @@ the facade's masked signal (``_fit_y_cache``), its device upload
 (``'__y_ext_dev__'``) and its DTI directions (``_fit_dirs_cache``); the
 tile driver's LUT quantization and tile plans (``_plan_cache``) and staged
 inputs (``_stage_cache``); each model's device constants
-(``_prep_cache``).  The port keeps the same, with the device added to the
-keys.  Here the same numpy-seeded subject goes through both packages'
-facades, and the same voxels through both packages' models, for NODDI
-(K1's twin), FreeWater and CylinderZeppelinBall on ``'pallas'`` (K2's twin)
-and SANDI; each cache is read as hit (the same object as before the fit),
-miss (a new one) or none, and the port's reading must be the JAX
-package's.  The one departure is the device upload: a port fit that does
-not stage (beyond ``max_device_bytes``, or on a mesh) keeps no copy of the
-signal on a device, and the next staged fit uploads it again, where the
-JAX facade keeps its copy throughout.
+(``_prep_cache``).  The port keeps the same in named records
+(``amico_tpu_torch.warm``), with the device added to the keys: the
+facade's ``_signal`` (the masked signal, its uploads, its directions), the
+tile driver's ``_plans`` and ``_staged``, the model's ``_prep``.  Here the
+same numpy-seeded subject goes through both packages' facades, and the
+same voxels through both packages' models, for NODDI (K1's twin),
+FreeWater and CylinderZeppelinBall on ``'pallas'`` (K2's twin) and SANDI;
+each cache is read as hit (the same object as before the fit), miss (a
+new one) or none, and the port's reading must be the JAX package's.  The
+one departure is the device upload: a port fit that does not stage
+(beyond ``max_device_bytes``, or on a mesh) keeps no copy of the signal on
+a device, and the next staged fit uploads it again, where the JAX facade
+keeps its copy throughout.
 
 Warm maps equal the cold ones bit for bit, and the maps after any change
 equal a fresh port Evaluation's bit for bit (both on the CPU).  Against the
@@ -34,6 +37,7 @@ import amico_tpu
 import amico_tpu_torch
 from amico_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from amico_tpu_torch.io import nifti
+from amico_tpu_torch.models.base import BaseModel
 from amico_tpu_torch.parallel import make_mesh
 from tests.test_torch_czb import BOUNDS as CZB_BOUNDS, REDUCED_RS
 from tests.test_torch_freewater import BOUNDS as FW_BOUNDS, PROTOCOL
@@ -139,21 +143,28 @@ def open_eval(pkg, name, study, config):
 
 def caches(ev):
     """Each cache's current object (None where there is none)."""
-    port = isinstance(ev, amico_tpu_torch.Evaluation)
+    m = ev.model
+    if isinstance(ev, amico_tpu_torch.Evaluation):
+        sig, plans, prep = ev._signal.value, m._plans.value, m._prep.value
+        dirs = sig.dirs.value if sig is not None else None
+        return {'y': sig.y if sig is not None else None,
+                'upload': sig.uploads.get(CPU) if sig is not None else None,
+                'dirs': dirs.DIRs if dirs is not None else None,
+                'lut': plans.lut_idx if plans is not None else None,
+                'plan': plans.by_width.get(ev.get_config('tile_size'))
+                if plans is not None else None,
+                'stage': m._staged.value,
+                'prep': prep.get(CPU) if prep is not None else None}
     yc = getattr(ev, '_fit_y_cache', None)
     dc = getattr(ev, '_fit_dirs_cache', None)
-    m = ev.model
     pc = getattr(m, '_plan_cache', None)
     prep = getattr(m, '_prep_cache', None)
-    upload = yc[4].get('__y_ext_dev__') if yc else None
-    if port and upload is not None:
-        upload = upload.get(CPU)
-    if prep is not None:
-        prep = prep[1].get(CPU) if port else prep[1]
-    return {'y': yc[3] if yc else None, 'upload': upload,
+    return {'y': yc[3] if yc else None,
+            'upload': yc[4].get('__y_ext_dev__') if yc else None,
             'dirs': dc[-1] if dc else None, 'lut': pc[1] if pc else None,
             'plan': pc[2].get(ev.get_config('tile_size')) if pc else None,
-            'stage': getattr(m, '_stage_cache', None), 'prep': prep}
+            'stage': getattr(m, '_stage_cache', None),
+            'prep': prep[1] if prep is not None else None}
 
 
 def reading(before, after):
@@ -418,20 +429,23 @@ def new_model(pkg, name, scheme):
 
 
 def model_caches(model):
+    if isinstance(model, BaseModel):
+        plans, stage, prep = (model._plans.value, model._staged.value,
+                              model._prep.value)
+        # the staged flat signal: the driver's own upload (no facade here)
+        return {'lut': plans.lut_idx if plans is not None else None,
+                'plan': plans.by_width.get(32) if plans is not None
+                else None, 'stage': stage,
+                'y_ext': stage.signal.get(CPU) if stage is not None
+                else None,
+                'prep': prep.get(CPU) if prep is not None else None}
     pc = getattr(model, '_plan_cache', None)
     prep = getattr(model, '_prep_cache', None)
-    if prep is not None:
-        prep = prep[1] if isinstance(prep[1], tuple) else prep[1].get(CPU)
     stage = getattr(model, '_stage_cache', None)
-    # the staged flat signal: '__y_ext__' in the JAX driver, the first of
-    # the device's inputs in the port's
-    y_ext = None
-    if stage is not None:
-        y_ext = stage[1].get('__y_ext__') if '__y_ext__' in stage[1] \
-            else stage[1].get(CPU, (None,))[0]
     return {'lut': pc[1] if pc else None,
             'plan': pc[2].get(32) if pc else None, 'stage': stage,
-            'y_ext': y_ext, 'prep': prep}
+            'y_ext': stage[1].get('__y_ext__') if stage is not None
+            else None, 'prep': prep[1] if prep is not None else None}
 
 
 @pytest.mark.parametrize('name', ['NODDI', 'FreeWater', 'CZB-pallas'])
@@ -487,7 +501,7 @@ def test_a_miss_frees_the_old_staged_signal_first(problems, case):
     scheme, kernels, htable, y, DIRs, other = problems['FreeWater']
     model = new_model(amico_tpu_torch, 'FreeWater', scheme)
     model.fit(Ctx(y, DIRs, htable, kernels, device='cpu'))
-    old = weakref.ref(model._stage_cache[1][CPU][0])
+    old = weakref.ref(model._staged.value.signal[CPU])
     alive = []
     run = model._run_tiled_fit
 
