@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from .. import trace
-from ..ops.cuda_qp import TAIL_EXITS, nneg_qp_tiles
+from ..ops.cuda_qp import TAIL_EXITS, nneg_qp_tiles, qp_lockstep
 from ..ops.solvers import nneg_qp_batch
 
 
@@ -49,7 +49,9 @@ def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
     ``L[:, None]``, as the JAX package does.  ``m0``/``x0`` warm-start the
     active-set rounds and skip FISTA.  While the port is traced, the tile
     QP's continuation rounds, summed on the device, and its tiles go to
-    the counters ``k2.rounds`` and ``k2.tiles``, and the tiles whose
+    the counters ``k2.rounds`` and ``k2.tiles``, its tiles again to
+    ``k2.lockstep`` where n sends them down the kernel's lockstep path
+    (``cuda_qp.qp_lockstep``; else 0), and the tiles whose
     continuation ended by the stall test or at the round cap to
     ``k2.stalled`` and ``k2.capped``; with ``valid`` (C, M), the
     atoms with x > 0 of the valid voxels and those voxels, summed on the
@@ -70,6 +72,7 @@ def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
                       tile_rounds=rounds, tile_exits=exits, **kw)
     trace.count_on_device('k2.rounds', rounds.sum())
     trace.count('k2.tiles', b.shape[0])
+    trace.count('k2.lockstep', b.shape[0] if qp_lockstep(b.shape[-1]) else 0)
     for counter, exit in (('k2.stalled', 'stalled'), ('k2.capped', 'cap')):
         trace.count_on_device(counter,
                               (exits == TAIL_EXITS.index(exit)).sum())

@@ -772,10 +772,20 @@ def _qp_sched_array(sch: StageSchedule) -> np.ndarray:
     return out
 
 
-QP_NWARPS = 32        # csrc/nneg_qp.cu NWARPS: warps a block for n <= 32
+QP_NWARPS = 32        # csrc/nneg_qp.cu NWARPS: warps a block for n <= 16
 QP_CLUSTER = 2        # csrc/nneg_qp.cu QP_CLUSTER: blocks a tile for n <= 32
 QP_NWARPS_WIDE = 16   # csrc/nneg_qp.cu NWARPS_WIDE: for n > 32, one block
+QP_LS_V = 6           # csrc/nneg_qp.cu QP_LS_V: voxels a warp solves at once
+QP_LS_WARPS = 16      # csrc/nneg_qp.cu QP_LS_WARPS: warps a block, lockstep
+QP_LS_LD = 36         # csrc/qp_lockstep.cuh LS_LD: row stride of its Gram
 QP_SMEM_RESERVE = 1024  # csrc/nneg_qp.cu: bytes kept for static arrays
+
+
+def qp_lockstep(n: int) -> bool:
+    """Whether K2 solves n-atom tiles on its lockstep path (17 <= n <= 32:
+    a warp takes QP_LS_V voxels at once, with a dense Gram product; the
+    C entry point chooses by n as this does)."""
+    return 16 < n <= 32
 
 
 @dataclass(frozen=True)
@@ -783,18 +793,22 @@ class QpGeometry:
     """How ``csrc/nneg_qp.cu`` lays out a launch: a voxel is solved by a
     group of ``width`` lanes holding ``per_lane`` coefficients each; a
     tile is a cluster of ``cluster`` blocks of ``warps`` warps, which hold
-    ``groups`` voxels in flight; and each block keeps the tile's per-voxel
-    state in ``smem`` bytes of dynamic shared memory: G, each voxel's
-    working-set and mask words, those of its STALL_ROUNDS - 1 rounds before
-    the last and of its anchor, its scale, its last STALL_ROUNDS objectives
-    and its anchor's and,
-    by ``state``, its x and b_eff (2), x only (1) or neither (0: x in the
-    output, b_eff recomputed from b each round)."""
+    ``groups`` lane groups, each solving ``batch`` voxels at once
+    (``batch`` > 1 on the lockstep path): ``groups * batch`` voxels in
+    flight.  Each block keeps in ``smem`` bytes of dynamic shared memory
+    G (on the lockstep path row-major at QP_LS_LD floats, 32 rows, and
+    each warp's scratch of ``batch`` rows of 32 floats), then the tile's
+    per-voxel state: each voxel's working-set and mask words, those of its
+    STALL_ROUNDS - 1 rounds before the last and of its anchor, its scale,
+    its last STALL_ROUNDS objectives and its anchor's and, by ``state``,
+    its x and b_eff (2), x only (1) or neither (0: x in the output, b_eff
+    recomputed from b each round)."""
     width: int
     per_lane: int
     warps: int
     cluster: int
     groups: int
+    batch: int
     state: int
     smem: int
 
@@ -812,8 +826,14 @@ def qp_geometry(n: int, M: int, smem_max: int) -> QpGeometry:
                                   f'atoms, got {n} (ROADMAP queue 2, K2)')
     width = 8 if n <= 8 else 16 if n <= 16 else 32
     k = -(-n // width)
+    warps, cluster = (QP_NWARPS, QP_CLUSTER) if k == 1 else \
+        (QP_NWARPS_WIDE, 1)
+    gram, batch = n * 32 * k, 1
+    if qp_lockstep(n):
+        warps, batch = QP_LS_WARPS, QP_LS_V
+        gram = 32 * QP_LS_LD + warps * batch * 32
     # G, then each voxel's words and scalars
-    words = n * 32 * k + M * ((STALL_ROUNDS + 2) * (k + 1))
+    words = gram + M * ((STALL_ROUNDS + 2) * (k + 1))
     rows = M * n                           # one voxel array (x or b_eff)
     avail = max(smem_max - QP_SMEM_RESERVE, 0) // 4
     state = 2 if words + 2 * rows <= avail else \
@@ -822,10 +842,8 @@ def qp_geometry(n: int, M: int, smem_max: int) -> QpGeometry:
         raise NotImplementedError(
             f'the kernel needs {words * 4} bytes of shared memory for {n} '
             f'atoms and {M} voxels a tile; the card allows {smem_max}')
-    warps, cluster = (QP_NWARPS, QP_CLUSTER) if k == 1 else \
-        (QP_NWARPS_WIDE, 1)
     return QpGeometry(width, k, warps, cluster,
-                      cluster * warps * 32 // width, state,
+                      cluster * warps * 32 // width, batch, state,
                       (words + state * rows) * 4)
 
 

@@ -15,13 +15,15 @@ variant's K1 estimates and coefficients, and on its phase-5 inputs
 (FreeWater Human and Mouse, 3,200 tiles; the random n = 21 problems
 under the dense schedule, 512 tiles), on random n = 150 problems and n =
 160 problems of 256 voxels a tile, on phase 9's 512 CylinderZeppelinBall
-tiles (n = 26) and on the lane-group edges (random problems at n = 8, 9,
-16, 17 and M = 1, 7, 33, 129, plain, with a mask and with a warm start)
+tiles (n = 26) and on 341 of 192 voxels (a czb.refit launch), and on the
+lane-group edges (random problems at n = 8, 9, 16, 17, 26, 32 and M = 1,
+7, 33, 129, 192, 200, plain, with a mask and with a warm start)
 its K2 solution, are compared with the reference's by ``torch.equal``,
 and again off the tiles that K2's stall test ended in either variant (a
 variant that writes exits tells which).
 K1 (the first 512-tile launch, in vivo) and K2 (the first 512-tile
-launch of FreeWater Human, Mouse and CZB) are timed with CUDA events,
+launch of FreeWater Human, Mouse and CZB, and the 341 x 192 CZB launch)
+are timed with CUDA events,
 the variants in turns: A B ... B A, ``--reps`` times over.
 
 K1's C entry point has changed twice; a variant's is told by words in its
@@ -59,6 +61,7 @@ import numpy as np
 PROTOCOL = dict(nb0=9, shells=(700.0, 2000.0), ndir=(30, 60))
 N_TILES = 3200
 STEP = 512
+CZB_REFIT = (341, 192)   # tiles and voxels a tile of a czb.refit launch
 T1_SIZES = ((8, 128), (1_000_003,))
 
 
@@ -239,6 +242,10 @@ def k2_inputs(tmp):
     model, kernels, htable = demo_czb(czb_scheme(), os.path.join(tmp, 'czb'))
     G, b, _ = czb_tile_inputs(model, kernels, htable, 'cuda', STEP, seed=1)
     yield 'czb', G, b, 4.0, DENSE_AS_SOLVER_KW, {}
+    # czb.refit's launch: 341 tiles of 192 voxels ('auto' on 850 samples)
+    G, b, _ = czb_tile_inputs(model, kernels, htable, 'cuda', CZB_REFIT[0],
+                              seed=2, M=CZB_REFIT[1])
+    yield 'czb192', G, b, 4.0, DENSE_AS_SOLVER_KW, {}
     yield from edge_inputs()
 
 
@@ -248,15 +255,17 @@ EDGE_WARM = dict(fista_iters=0, refine_rounds=3, cg_iters=(3, 5),
 
 def edge_inputs(C=33):
     """The lane groups' edges: random problems at n = 8, 9, 16, 17 (one
-    group width's last n and the next one's first) and M = 1, 7, 33, 129
-    voxels a tile, plain under the default schedule, with a 0/1 mask, and
-    with a warm start (m0, x0) under a short schedule with `converge`."""
+    group width's last n and the next one's first), 26 and 32 (the
+    lockstep path's CZB n and its last) and M = 1, 7, 33, 129, 192 and 200
+    voxels a tile (short and ragged lockstep batches), plain under the
+    default schedule, with a 0/1 mask, and with a warm start (m0, x0)
+    under a short schedule with `converge`."""
     import numpy as np
     import torch
     from amico_tpu_torch.models.base import DEFAULT_AS_SOLVER_KW
     from amico_tpu_torch.testing import random_qp_problems
-    for n in (8, 9, 16, 17):
-        for M in (1, 7, 33, 129):
+    for n in (8, 9, 16, 17, 26, 32):
+        for M in (1, 7, 33, 129, 192, 200):
             G, b = (torch.from_numpy(a).cuda() for a in random_qp_problems(
                 C, n, M=M, seed=n * 1000 + M))
             rng = np.random.RandomState(n + M)
@@ -357,7 +366,7 @@ def bench_kernels(variants, reps, count, tail, tmp, record):
                 f'{float(nz.median()):.0f} max {float(nz.max()):.0f}')
             record[f'k2_tail_{name}'] = dict(h, chain_matvecs_max=float(
                 mv.max()), chain_nonzeros_max=float(nz.max()))
-        if name in ('Human', 'Mouse', 'czb'):
+        if name in ('Human', 'Mouse', 'czb', 'czb192'):
             first = (G[:STEP].contiguous(), b[:STEP].contiguous())
             fns = {v.label: (lambda v=v: v.k2(*first, lam2, s))
                    for v in variants}
@@ -369,7 +378,8 @@ def bench_kernels(variants, reps, count, tail, tmp, record):
             times = in_turns(fns, reps, 5)
             for k, t in times.items():
                 log(f'K2 {name} {k}: {np.median(t):.3f} ms median per '
-                    f'512-tile launch (readings {[round(x, 3) for x in t]})')
+                    f'{first[0].shape[0]} x {b.shape[1]} launch (readings '
+                    f'{[round(x, 3) for x in t]})')
             record[f'k2_ms_{name}'] = times
         if count and name in ('Human', 'dense'):
             _, w = solve_work(cuda_qp.nneg_qp_tiles_torch, G[:STEP],

@@ -449,6 +449,99 @@ def test_nneg_qp_kernel_at_lane_group_edges(cuda, n, M, extra):
     torch.testing.assert_close(x_k, x_t, atol=2e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize('n,M,extra', [
+    (n, M, extra) for n in (17, 21, 26, 32) for M in (1, 7, 65, 192, 200)
+    for extra in (None, 'mask', 'warm')])
+def test_nneg_qp_kernel_lockstep_path(cuda, n, M, extra):
+    """K2's lockstep path (17 <= n <= 32: a warp solves QP_LS_V voxels of a
+    tile at once) at short batches (M = 1, 7), a ragged last batch (65,
+    200) and czb.refit's width (192), plain, with a mask and with a warm
+    start, under the dense schedule with `converge`: the kernel against
+    the twin, both on the card, at test_nneg_qp_kernel_semantics's bounds
+    (x within 2e-4 + 1e-3 relative, the objective within 1e-4
+    relative)."""
+    from amico_tpu_torch.testing import qp_agreement
+    assert cuda_qp.qp_lockstep(n)
+    G, b = qp_problems(5, n, M=M, seed=n * 7 + M)
+    rng = np.random.RandomState(n + 3 * M)
+    on = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa
+    inputs = {}
+    if extra == 'mask':
+        inputs['mask'] = on(rng.rand(*b.shape) > 0.4)
+    if extra == 'warm':
+        inputs['m0'] = on(rng.rand(*b.shape) > 0.6)
+        inputs['x0'] = on(rng.rand(*b.shape) * 0.1)
+    x_k = nneg_qp_tiles(G, b, None, 0.0, 4.0, **inputs, **DENSE_AS_SOLVER_KW)
+    x_t = nneg_qp_tiles_torch(G, b, None, 0.0, 4.0, **inputs,
+                              **DENSE_AS_SOLVER_KW)
+    torch.cuda.synchronize()
+    if 'mask' in inputs:
+        assert bool((x_k[inputs['mask'] == 0] == 0).all())
+    assert qp_agreement(G, b, 0.0, 4.0, x_k, x_t)['obj_gap_max'] < 1e-4
+    torch.testing.assert_close(x_k, x_t, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize('name,lam2', [('czb_period3_tile.npz', 2.0),
+                                       ('czb_period5_tile.npz', 8.0)])
+def test_k2_stalls_the_period_tiles_as_the_twin(cuda, name, lam2):
+    """The two CZB tiles of tests/data whose voxels cycle with period 3
+    and 5 (tests/test_torch_k2_tail.py), on the lockstep path: the kernel
+    ends each by the exit the twin ends it by ('stalled'), neither at the
+    cap, its objectives within 1e-6 relative of the twin's."""
+    from test_torch_k2_tail import czb_tile, objective
+    from amico_tpu_torch.testing import TAIL_EXITS, qp_tail
+    G, b = (t.cuda() for t in czb_tile(name))
+    rounds, exits = torch.full((2, 1), -1, dtype=torch.int32, device='cuda')
+    x_k = nneg_qp_tiles(G, b, None, 0.0, lam2, tile_rounds=rounds,
+                        tile_exits=exits, **DENSE_AS_SOLVER_KW)
+    x_t, tail = qp_tail(G, b, None, 0.0, lam2, **DENSE_AS_SOLVER_KW)
+    torch.cuda.synchronize()
+    report = (rounds.tolist(), exits.tolist(), tail['rounds'].tolist(),
+              tail['exit'].tolist())
+    assert exits.cpu().tolist() == tail['exit'].cpu().tolist() \
+        == [TAIL_EXITS.index('stalled')], report
+    assert 0 < int(rounds[0]) < tail['cap'], report
+    live = b.abs().amax(-1) > 0
+    o_k, o_t = objective(G, b, lam2, x_k), objective(G, b, lam2, x_t)
+    assert float(((o_k - o_t).abs() / o_t.abs())[live].max()) < 1e-6, report
+
+
+def test_k2_lockstep_counter_on_fits(freewater, czb):
+    """Traced, a CZB fit on the card (26 atoms) sends every K2 tile down
+    the lockstep path, ``k2.lockstep`` = ``k2.tiles``, and a FreeWater fit
+    (11 atoms) none."""
+    from amico_tpu_torch import trace
+    from amico_tpu_torch.testing import czb_voxels, freewater_voxels
+    counts = {}
+    for name, (model, kernels, htable), voxels in (
+            ('czb', czb, czb_voxels),
+            ('freewater', freewater['Human'], freewater_voxels)):
+        y, DIRs = voxels(2000, kernels, htable, seed=9)[:2]
+
+        class Ctx:
+            def __init__(s):
+                s.y, s.DIRs, s.htable, s.KERNELS = y, DIRs, htable, kernels
+
+            def get_config(s, k):
+                return {'device': 'cuda'}.get(k)
+
+        if name == 'czb':
+            model.set_solver(backend='pallas')
+        trace.clear()
+        trace.enable()
+        try:
+            with trace.span('fit'):
+                model.fit(Ctx())
+        finally:
+            trace.disable()
+            model.set_solver()
+        counts[name] = trace.spans(name='fit')[-1]['counts']
+        trace.clear()
+    assert counts['czb']['k2.lockstep'] == counts['czb']['k2.tiles'] > 0
+    assert counts['freewater']['k2.lockstep'] == 0
+    assert counts['freewater']['k2.tiles'] > 0
+
+
 def test_nneg_qp_kernel_without_room_for_its_state(cuda):
     """At 160 atoms and 256 voxels a tile neither x nor b_eff fits beside G
     in shared memory: x stays in the output and b_eff is rebuilt from b

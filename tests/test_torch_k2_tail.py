@@ -7,6 +7,7 @@ kernel maps voxels to lane groups by position and relies on it),
 ``testing.qp_tail`` reads rounds and exits as the schedule implies, and
 ``cuda_qp.qp_geometry`` describes the launch that csrc/nneg_qp.cu makes."""
 import os
+import re
 
 import numpy as np
 import pytest
@@ -260,31 +261,71 @@ def test_tail_rounds_agree_with_solve_work():
 
 
 # n -> (group width, coefficients a lane, warps a block, blocks a tile,
-# voxels in flight, state, dynamic shared memory bytes a block) at 128
-# voxels a tile on an H100: G at 32 * per_lane floats a row, 6 * per_lane
-# + 6 words a voxel (its working-set and mask words, those of its 3 rounds
-# before the last and of its anchor, its scale, its last 4 objectives and
-# its anchor's), then x and b_eff (state 2) or x alone (state 1) as they fit
+# lane groups a tile, voxels a group solves at once, state, dynamic shared
+# memory bytes a block) at 128 voxels a tile on an H100: G at 32 * per_lane
+# floats a row (17 <= n <= 32, the lockstep path: 32 rows of 36 floats and
+# a scratch of 6 x 32 floats a warp), 6 * per_lane + 6 words a voxel (its
+# working-set and mask words, those of its 3 rounds before the last and of
+# its anchor, its scale, its last 4 objectives and its anchor's), then x
+# and b_eff (state 2) or x alone (state 1) as they fit
+LOCKSTEP_GRAM = 32 * 36 + 16 * 6 * 32
 GEOMETRY = {
-    1: (8, 1, 32, 2, 256, 2, (32 + 1536 + 2 * 128) * 4),
-    8: (8, 1, 32, 2, 256, 2, (256 + 1536 + 2 * 1024) * 4),
-    9: (16, 1, 32, 2, 128, 2, (288 + 1536 + 2 * 1152) * 4),
-    11: (16, 1, 32, 2, 128, 2, (352 + 1536 + 2 * 1408) * 4),
-    16: (16, 1, 32, 2, 128, 2, (512 + 1536 + 2 * 2048) * 4),
-    17: (32, 1, 32, 2, 64, 2, (544 + 1536 + 2 * 2176) * 4),
-    26: (32, 1, 32, 2, 64, 2, (832 + 1536 + 2 * 3328) * 4),
-    32: (32, 1, 32, 2, 64, 2, (1024 + 1536 + 2 * 4096) * 4),
-    33: (32, 2, 16, 1, 16, 2, (2112 + 2304 + 2 * 4224) * 4),
-    160: (32, 5, 16, 1, 16, 1, (25600 + 4608 + 20480) * 4),
+    1: (8, 1, 32, 2, 256, 1, 2, (32 + 1536 + 2 * 128) * 4),
+    8: (8, 1, 32, 2, 256, 1, 2, (256 + 1536 + 2 * 1024) * 4),
+    9: (16, 1, 32, 2, 128, 1, 2, (288 + 1536 + 2 * 1152) * 4),
+    11: (16, 1, 32, 2, 128, 1, 2, (352 + 1536 + 2 * 1408) * 4),
+    16: (16, 1, 32, 2, 128, 1, 2, (512 + 1536 + 2 * 2048) * 4),
+    17: (32, 1, 16, 2, 32, 6, 2, (LOCKSTEP_GRAM + 1536 + 2 * 2176) * 4),
+    26: (32, 1, 16, 2, 32, 6, 2, (LOCKSTEP_GRAM + 1536 + 2 * 3328) * 4),
+    32: (32, 1, 16, 2, 32, 6, 2, (LOCKSTEP_GRAM + 1536 + 2 * 4096) * 4),
+    33: (32, 2, 16, 1, 16, 1, 2, (2112 + 2304 + 2 * 4224) * 4),
+    160: (32, 5, 16, 1, 16, 1, 1, (25600 + 4608 + 20480) * 4),
 }
 
 
 @pytest.mark.parametrize('n', list(GEOMETRY))
 def test_launch_geometry(n):
     g = cuda_qp.qp_geometry(n, 128, H100_SMEM)
-    assert (g.width, g.per_lane, g.warps, g.cluster, g.groups, g.state,
-            g.smem) == GEOMETRY[n]
+    assert (g.width, g.per_lane, g.warps, g.cluster, g.groups, g.batch,
+            g.state, g.smem) == GEOMETRY[n]
     assert g.width * g.per_lane >= n and g.smem <= H100_SMEM - 1024
+    assert (g.batch > 1) == cuda_qp.qp_lockstep(n) == (17 <= n <= 32)
+
+
+def test_lockstep_geometry():
+    """The lockstep path (17 <= n <= 32) at CZB's widths: 192 voxels a tile
+    (czb.refit's 'auto' width) fill its 2 x 16 warps x 6 voxels in flight
+    exactly; its G and scratch take 4,224 floats beside 12 words a voxel,
+    and x and b_eff (26 floats each a voxel) stay in shared memory up to
+    838 voxels a tile, x alone up to 1,411, neither up to 4,469, on an
+    H100."""
+    g = cuda_qp.qp_geometry(26, 192, H100_SMEM)
+    assert (g.groups * g.batch, g.state) == (192, 2)
+    assert g.smem == (LOCKSTEP_GRAM + 192 * 12 + 2 * 192 * 26) * 4
+    assert [cuda_qp.qp_geometry(26, M, H100_SMEM).state
+            for M in (838, 839, 1411, 1412, 4469)] == [2, 1, 1, 0, 0]
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        cuda_qp.qp_geometry(26, 4470, H100_SMEM)
+    # every width of CZB's ladder gives each warp the same voxels: 64 and
+    # 128 a part of one batch, 320 a full one and 4 of 6 slots of a second
+    for M in (64, 128, 192, 256, 320, 384):
+        g = cuda_qp.qp_geometry(26, M, H100_SMEM)
+        assert (g.groups * g.batch, M % g.groups) == (192, 0)
+
+
+def test_launch_constants_are_the_kernels():
+    """The wrapper's copies of the launch constants match csrc."""
+    csrc = os.path.join(os.path.dirname(cuda_qp.__file__), '..', 'csrc')
+    src = open(os.path.join(csrc, 'nneg_qp.cu')).read() \
+        + open(os.path.join(csrc, 'qp_lockstep.cuh')).read()
+    for name, value in (('NWARPS', cuda_qp.QP_NWARPS),
+                        ('QP_CLUSTER', cuda_qp.QP_CLUSTER),
+                        ('NWARPS_WIDE', cuda_qp.QP_NWARPS_WIDE),
+                        ('QP_LS_V', cuda_qp.QP_LS_V),
+                        ('QP_LS_WARPS', cuda_qp.QP_LS_WARPS),
+                        ('LS_LD', cuda_qp.QP_LS_LD),
+                        ('QP_SMEM_RESERVE', cuda_qp.QP_SMEM_RESERVE)):
+        assert re.search(rf'#define {name} {value}\b', src), name
 
 
 def test_launch_geometry_edges():

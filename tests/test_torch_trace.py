@@ -236,6 +236,29 @@ def test_k2_rounds_counted_in_a_fit(study, monkeypatch):
     assert counts['scatter.host'] == len(ev.RESULTS)
 
 
+@pytest.mark.parametrize('n,lockstep', [(16, False), (17, True), (32, True),
+                                        (33, False)])
+def test_k2_lockstep_counted_from_n(n, lockstep):
+    """Traced, ``solve_tiles`` counts a launch's tiles as ``k2.lockstep``
+    where n sends them down K2's lockstep path (17 <= n <= 32) and 0
+    elsewhere, beside ``k2.tiles``: the count is the host's, from n (the
+    twin solves here); the solution is an untraced solve's."""
+    from amico_tpu_torch.models._fitops import solve_tiles
+    from amico_tpu_torch.testing import random_qp_problems
+    G, b = (torch.from_numpy(a) for a in random_qp_problems(3, n, M=4,
+                                                            seed=n))
+    kw = dict(fista_iters=10, refine_rounds=2, cg_iters=4, converge=True)
+    x = solve_tiles(G, b, None, 0.0, 1e-3, solver_kw=kw)
+    assert trace.spans() == []
+    trace.enable()
+    with trace.span('fit'):
+        x_traced = solve_tiles(G, b, None, 0.0, 1e-3, solver_kw=kw)
+    assert torch.equal(x_traced, x)
+    counts = trace.spans(name='fit')[-1]['counts']
+    assert counts['k2.tiles'] == 3
+    assert counts['k2.lockstep'] == (3 if lockstep else 0)
+
+
 def test_sweep_spans_and_seconds(study, tmp_path):
     """Each fitted subject is a request: its ``subject``, ``prefetch_wait``
     and fit spans, and the prefetched ``load_data`` of the second subject
