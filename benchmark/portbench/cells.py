@@ -151,6 +151,8 @@ class Cell:
             tempfile.gettempdir(), 'portbench', config['name'],
             traffic['name'])
         self.run = Run(traffic['kind'])
+        # the facade settings applied before each load_data
+        self.settings = pipeline.evaluation(config)
         self.bvals, self.bvecs, self.pulses = synth.protocol(config)
         self.mask = synth.mask(config)
         self.n_vox = int(self.mask.sum())
@@ -193,14 +195,18 @@ class Cell:
             del vol, y
         if refit:
             self.grid = lambda_grid(self.config, self.traffic)
-            self.group = np.arange(k) % len(self.grid)
+            self.group = np.arange(self.pool_sel[0].size) % len(self.grid)
 
     def _atoms(self) -> str:
         """The program's LUT atoms of this configuration, in the checkout's
-        cache: generated by the first run, reused by the later ones."""
+        cache: generated by the first run, reused by the later ones.  The
+        facade settings join the key only where the configuration states
+        them (the atoms of a direction-averaged fit are generated on the
+        averaged scheme)."""
+        keys = ('model', 'model_params', 'lut', 'protocol') + (
+            ('evaluation',) if 'evaluation' in self.config else ())
         key = hashlib.sha256(json.dumps(
-            [self.config[k] for k in ('model', 'model_params', 'lut',
-                                      'protocol')],
+            [self.config[k] for k in keys],
             sort_keys=True).encode()).hexdigest()[:12]
         return os.path.join(CACHE, 'atoms', f'{self.config["name"]}.{key}')
 
@@ -209,6 +215,8 @@ class Cell:
         cfg = self.config
         ev = Evaluation(os.path.join(self.work, 'pool'), 'p0',
                         device=self.device)
+        for k, v in self.settings.items():
+            ev.set_config(k, v)
         ev.load_data('DWI.nii', 'DWI.scheme', mask_filename='mask.nii')
         ev.set_model(cfg['model'])
         ev.model.set(**cfg['model_params'])
@@ -253,7 +261,8 @@ class Cell:
         sw = SubjectSweep(
             self.study, names, cfg['model'], mask_filename='mask.nii',
             ndirs=int(cfg['lut']['ndirs']), lmax=int(cfg['lut']['lmax']),
-            config={'OUTPUT_path': out, 'device': self.device},
+            config={'OUTPUT_path': out, 'device': self.device,
+                    **self.settings},
             model_params=cfg['model_params'],
             solver_params={'lambda1': float(s['lambda1']),
                            'lambda2': float(s['lambda2'])})
@@ -343,7 +352,7 @@ class Cell:
     def _reference(self, raw, lambdas, precision):
         return pipeline.solve_voxels(
             self.config, self.D, raw, self.bvals, self.bvecs, lambdas,
-            bool(self.traffic.get('corrected_dwi')), precision)
+            bool(self.traffic.get('corrected_dwi')), precision, self.pulses)
 
     def _answers_refit(self, precision):
         lam = np.array([[self.grid[k]['lambda1'], self.grid[k]['lambda2']]

@@ -8,7 +8,8 @@ the harness made while their atoms were written into
 model placed on the ``reference`` package's path by the test alone is
 taken by the dictionary, the least-work count, the reference's solve and
 the dictionary's cache key, and receives each shell's pulse timing from a
-timed protocol, whose STEJSKALTANNER scheme the program reads back."""
+timed protocol, whose STEJSKALTANNER scheme the program reads back.  The
+seeded subjects of the three configurations are pinned by digest."""
 import importlib
 import os
 import sys
@@ -92,6 +93,35 @@ def test_dictionaries_as_before(tiny_configs, name):
         new = D[k][::50] if k == 'aniso' else D[k]
         assert new.shape == v.shape, k
         assert np.allclose(new, v, rtol=1e-12, atol=0), k
+
+
+# SHA-256 of the float32 volume and of the masked voxels' signals of
+# ``synth.subject(..., 2 ** 31 + 12345, 1)`` on the CPU at ``small_bench``'s
+# size, as the harness made them before a configuration could state facade
+# settings (and before a model could have no anisotropic atom)
+SUBJECTS = {
+    'noddi_ukb': (
+        '5f6b81133072bbb8adcae069418d2dac573149fc727ddb58a6bc52014ec86fb6',
+        '56f31563e45172a94531c88810d4a7fa55208bdcf09f5f5f35b26a9766538f3d'),
+    'freewater_human': (
+        'bfe192915e64820045670a5f1aa1cef50ee749bfa9c6fc9bad45667240739ce6',
+        '809fae9ad78c4b05c4f067f9ff0848aff22e1b44a20f664fea956725fb472068'),
+    'activeax_cdmd': (
+        'ca66558f4ad327ffc75c2903b0e9ec9d02406d5ae7281f47c2f7a8f1560b1845',
+        'd183825c9e2d7693b102260cc175781e9673388f40ce7584463b611b472a5104')}
+
+
+@pytest.mark.parametrize('name', sorted(SUBJECTS))
+def test_seeded_subjects_as_before(tiny_configs, name):
+    import hashlib
+    c = registry.config(name + '_tiny', tiny_configs)
+    b, g, P = synth.protocol(c)
+    D = dictionary.build(c, b, g, P)
+    vol, y = synth.subject(c, torch.as_tensor(D['aniso'], dtype=torch.float32),
+                           torch.as_tensor(D['iso'], dtype=torch.float32),
+                           2 ** 31 + 12345, 1)
+    assert (hashlib.sha256(vol.numpy().tobytes()).hexdigest(),
+            hashlib.sha256(y.numpy().tobytes()).hexdigest()) == SUBJECTS[name]
 
 
 @pytest.mark.parametrize('name', ['noddi_ukb', 'freewater_human'])

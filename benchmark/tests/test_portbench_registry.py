@@ -54,3 +54,18 @@ def test_benchmark_json_names_existing_pieces():
             assert m['moves'] in [e['name'] for e in e2e]
     for m in bench['per_layer']:
         registry.metric_reader(m['name'])
+
+
+def test_the_study_cell_of_the_tests_names_existing_pieces():
+    """The study cell that the tests put back into their copy of
+    BENCHMARK.json reads metrics and traffic that exist."""
+    with open(os.path.join(BENCH, 'tests', 'fixtures',
+                           'study_cell.json')) as f:
+        study = json.load(f)
+    (w,) = study['workloads']
+    assert registry.traffic(w['traffic'])['kind'] == 'study'
+    registry.config(w['config'])
+    assert [m['name'] for m in study['end_to_end']] == ['study_voxels_per_s']
+    for m in study['per_layer']:
+        assert m['moves'] == 'study_voxels_per_s'
+        registry.metric_reader(m['name'])

@@ -1,7 +1,9 @@
-"""The least-work count on tiny shapes, worked by hand."""
+"""The least-work count on tiny shapes, worked by hand, and on the
+benchmark's configurations as counted before a configuration could state
+facade settings."""
 import pytest
 
-from portbench import work
+from portbench import registry, work
 
 
 def _config(ref, n_maps, **mp):
@@ -32,3 +34,22 @@ def test_least_time_names_its_bound():
     assert (t, by) == (pytest.approx(1.0), 'operations')
     t, by = work.least_time(1.0, 3.35e12)
     assert (t, by) == (pytest.approx(1.0), 'bytes')
+
+
+# (operations, bytes) of 3 fits of 186,872 voxels, without and with the
+# corrected DWI
+TODAY = {'noddi_ukb': ((80040267552.0, 333536112.0),
+                       (80040267552.0, 568994832.0)),
+         'freewater_human': ((814014432.0, 131450448.0),
+                             (814014432.0, 254785968.0)),
+         'activeax_cdmd': ((25537180032.0, 2045421792.0),
+                           (25537180032.0, 3951516192.0))}
+
+
+@pytest.mark.parametrize('name', sorted(TODAY))
+@pytest.mark.parametrize('corrected_dwi', [False, True])
+def test_the_configurations_count_as_before(name, corrected_dwi):
+    c = registry.config(name)
+    assert 'evaluation' not in c
+    assert work.least_work(c, 186872, 3, corrected_dwi) == \
+        TODAY[name][corrected_dwi]
